@@ -6,11 +6,19 @@
 Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
 
 1. Environment: versions, the card's name and power limit, the kernels'
-   build from the sources in this checkout (``nvcc`` and ``g++``, started
-   together), TF32 off for matmuls and cuDNN.
+   build from the sources in this checkout (``nvcc`` for the beam-search
+   kernel and its phase-clock build, ``g++`` for the HNSW builder, all started
+   together; ``-Xptxas -v`` printed for both kernel builds), TF32 off for
+   matmuls and cuDNN.
 2. The HNSW beam-search kernel against its plain PyTorch version on the card:
-   ragged N=203 x 2048 with -1 padding and repeated ids, then N=1,000,000 x
-   2048 (f32 and bf16) with a random m0=32 neighbour table, Q=70, ef=100.
+   ragged N=203 x 2048 with -1 padding and repeated ids (ids equal in order);
+   the edge cases of ``ops.beam_search_cases`` on quarter-valued data, where
+   every distance and tie is exact (duplicate rows, m0 16/32/64/128, ef
+   32/100/200/2000, hops with more fresh rows than warps, bf16, N=11, an all
+   -1 row, an N that fits only without the neighbour-row cache), ids and
+   distances equal in order; then N=1,000,000 x 2048 (f32 and bf16) with a
+   random m0=32 neighbour table, Q=70, ef=100, with the phase-clock split at
+   f32.
 3. The main path through the entry points a user calls: 16 synthetic JPEGs
    through ResNet101-SOLAR at full width (seeded, perturbed weights carried in
    as Flax-layout numpy arrays through ``from_flax_variables``, saved as a
@@ -20,7 +28,12 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    through ``query_image``, and one ``query_batch`` of 4. The kernel's launch
    count is set to 0 just before and read just after; every search must have
    launched it. One query on a CPU-built service must give the card's ids.
-4. Kernel and plain times at the served shapes (Q=1 and Q=32).
+4. Kernel and plain times at the served shapes (Q=1 and Q=32, ids equal in
+   order), and the phase-clock split at Q=1.
+
+Kernel times are medians of CUDA events around one call with the L2 flushed
+before it (``ms``), and the same with a spin kernel queued ahead of the first
+event, so the host's launch gaps are hidden (``device_ms``).
 
 Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -31,6 +44,7 @@ CUDA device.
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,10 +72,11 @@ def card_line():
     ).stdout.strip()
 
 
-def compare_beams(s_ref, i_ref, s_got, i_got, atol, tie):
+def compare_beams(s_ref, i_ref, s_got, i_got, atol, tie=None):
     """Same id set per row, same distance per id (``atol``), and where the
-    order differs the distances at those ranks within ``tie``. Returns the
-    largest distance difference."""
+    order differs the distances at those ranks within ``tie``; ``tie=None``
+    asks for the ids in the same order. Returns the largest distance
+    difference."""
     s_ref, i_ref, s_got, i_got = (t.cpu().numpy() for t in (s_ref, i_ref, s_got, i_got))
     err = 0.0
     for r in range(i_ref.shape[0]):
@@ -72,19 +87,28 @@ def compare_beams(s_ref, i_ref, s_got, i_got, atol, tie):
             err = max(err, abs(ref[i] - s))
         moved = i_ref[r] != i_got[r]
         if moved.any():
+            check(tie is not None, f"beam row {r}: ids differ in order")
             check(np.abs(s_ref[r][moved] - s_got[r][moved]).max() <= tie,
                   f"beam row {r}: order differs beyond ties")
     check(err <= atol, f"kernel vs plain distance error {err} > {atol}")
     return err
 
 
-def time_ms(fn, reps, flush):
+SLEEP_CYCLES = 2_000_000     # torch.cuda._sleep spin ahead of a timed run
+
+
+def time_ms(fn, reps, flush, spin=False):
     """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up,
-    with the L2 cache flushed before each run (a served query finds it cold)."""
+    with the L2 cache flushed before each run (a served query finds it cold).
+    With ``spin``, a spin kernel runs before the first event, so the host has
+    queued all of ``fn``'s launches before the card reaches them: the time is
+    the card's, without the host's launch gaps."""
     fn()
     times = []
     for _ in range(reps):
         flush()
+        if spin:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -105,24 +129,87 @@ def bound_ms(stats, q, d, elt, ef_pad, m0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def measure(bs, db, nbr0, q, starts, flush, reps=20, plain_reps=3):
+def measure(bs, db, nbr0, q, starts, flush, tie, reps=20, plain_reps=3):
     """Kernel vs plain on one input: error, times, this run's work."""
     s_k, i_k = bs.beam_search(db, nbr0, q, starts, ef=EF)
     torch.cuda.synchronize()
     stats = {}
     s_p, i_p = bs.beam_search_reference(db, nbr0, q, starts, ef=EF, stats=stats)
-    err = compare_beams(s_p, i_p, s_k, i_k, atol=1e-3, tie=1e-3)
-    ms = time_ms(lambda: bs.beam_search(db, nbr0, q, starts, ef=EF), reps, flush)
+    err = compare_beams(s_p, i_p, s_k, i_k, atol=1e-3, tie=tie)
+    run = lambda: bs.beam_search(db, nbr0, q, starts, ef=EF)  # noqa: E731
+    ms = time_ms(run, reps, flush)
+    device_ms = time_ms(run, reps, flush, spin=True)
     plain = time_ms(lambda: bs.beam_search_reference(db, nbr0, q, starts, ef=EF),
                     plain_reps, flush)
     elt = db.element_size()
     bnd, by, nbytes = bound_ms(stats, q.shape[0], db.shape[1], elt,
                                bs.padded_ef(EF), nbr0.shape[1])
-    return {"N": db.shape[0], "D": db.shape[1], "dtype": str(db.dtype).split(".")[-1],
-            "Q": q.shape[0], "ef": EF, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "bytes": nbytes, "max_abs_err": err,
-            "expansions_per_query": stats["expansions"] / q.shape[0],
-            "fresh_rows_per_query": stats["fresh_rows"] / q.shape[0]}
+    hops = stats["expansions"] / q.shape[0]
+    rec = {"N": db.shape[0], "D": db.shape[1], "dtype": str(db.dtype).split(".")[-1],
+           "Q": q.shape[0], "ef": EF, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain, "bound_ms": bnd,
+           "bound_by": by, "bytes": nbytes, "max_abs_err": err,
+           "expansions_per_query": hops, "us_per_hop": ms * 1000 / hops,
+           "fresh_rows_per_query": stats["fresh_rows"] / q.shape[0]}
+    return rec
+
+
+def sm_cycles_per_us():
+    """The SM clock under a spin kernel: cycles of torch.cuda._sleep over its
+    CUDA-event time."""
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 * SLEEP_CYCLES)
+    b.record()
+    torch.cuda.synchronize()
+    return 10 * SLEEP_CYCLES / (a.elapsed_time(b) * 1000)
+
+
+def phase_split(bs, label, db, nbr0, q, starts, flush):
+    """Run the phase-clock build once, check its beams against the served
+    build's, and print each phase's share of the hop loop and its us per hop
+    (cycles converted at the SM clock a spin kernel shows)."""
+    run = lambda: bs.beam_search_phase_clocks(db, nbr0, q, starts, ef=EF)  # noqa: E731
+    ms = time_ms(run, 5, flush)
+    s_c, i_c, clk = run()
+    s_k, i_k = bs.beam_search(db, nbr0, q, starts, ef=EF)
+    compare_beams(s_k, i_k, s_c, i_c, atol=1e-3, tie=1e-3)
+    c = clk.double().cpu()
+    named = dict(zip(bs.CLOCK_SLOTS, c.sum(0).tolist()))
+    cyc_per_us = sm_cycles_per_us()
+    loop = sum(named[k] for k in ("A", "B", "C", "barrier"))
+    hops = named["hops"]
+    rec = {"phase_clocks": label, "Q": q.shape[0], "ms": ms, "cycles_per_us": cyc_per_us,
+           "hops_per_query": hops / q.shape[0],
+           "fresh_rows_per_hop": named["fresh_rows"] / hops,
+           "same_hop_pop_share": named["same_hop_pops"] / hops,
+           "loop_share_of_block": loop / float(c[:, 7].sum()),
+           "block_us": float(c[:, 7].max()) / cyc_per_us}
+    for k in ("A", "B", "C", "barrier"):
+        rec[f"{k}_share"] = named[k] / loop
+        rec[f"{k}_us_per_hop"] = named[k] / hops / cyc_per_us
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_case(bs, cases, name, dev):
+    """The kernel and its phase-clock build against plain on one edge case:
+    ids in order, distances exact. Returns the largest distance difference
+    and whether the launch kept the neighbour-row cache."""
+    args, kw, ef, dtype = cases.EDGE_CASES[name]
+    db, nbr0, q, starts = cases.quarter_case(*args, **kw)
+    db = torch.as_tensor(db, device=dev).to(getattr(torch, dtype)).contiguous()
+    args = (db,) + tuple(torch.as_tensor(a, device=dev) for a in (nbr0, q, starts))
+    cache, _ = bs.shared_memory_plan(*db.shape, nbr0.shape[1], bs.padded_ef(ef))
+    check(bool(cache) != (name in cases.NO_CACHE),
+          f"edge case {name}: launched {'with' if cache else 'without'} the cache")
+    s_k, i_k = bs.beam_search(*args, ef=ef)
+    s_c, i_c, _ = bs.beam_search_phase_clocks(*args, ef=ef)
+    torch.cuda.synchronize()
+    s_p, i_p = bs.beam_search_reference(*args, ef=ef)
+    compare_beams(s_p, i_p, s_c, i_c, atol=0.0)
+    return compare_beams(s_p, i_p, s_k, i_k, atol=0.0), cache
 
 
 def random_table(n, m0, g, dev):
@@ -138,28 +225,40 @@ def unit_rows(x):
     return x / x.norm(dim=1, keepdim=True)
 
 
-def kernel_phase(bs, dev, flush):
+def kernel_phase(bs, cases, dev, flush):
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    # (a) ragged N with padding and repeats, at the tests' tolerance
+    # (a) ragged N with padding and repeats, ids in order
     db = unit_rows(torch.randn(203, D, generator=g, device=dev))
     nbr = random_table(203, M0, g, dev)
     q = unit_rows(torch.randn(8, D, generator=g, device=dev))
     starts = torch.randint(0, 203, (8,), generator=g, device=dev, dtype=torch.int32)
     s_k, i_k = bs.beam_search(db, nbr, q, starts, ef=EF)
     s_p, i_p = bs.beam_search_reference(db, nbr, q, starts, ef=EF)
-    out["n203"] = compare_beams(s_p, i_p, s_k, i_k, atol=1e-4, tie=1e-5)
-    print(f"kernel vs plain, N=203 D={D} f32 Q=8: max_abs_err {out['n203']}", flush=True)
-    # (b) 1M x 2048, generated on the card
+    out["n203"] = compare_beams(s_p, i_p, s_k, i_k, atol=1e-4)
+    print(f"kernel vs plain, N=203 D={D} f32 Q=8: ids in order, max_abs_err {out['n203']}",
+          flush=True)
+    # (b) the edge cases, exact; the phase-clock build must agree as well
+    for name, (args, _, ef, dtype) in cases.EDGE_CASES.items():
+        err, cache = run_case(bs, cases, name, dev)
+        print(f"edge case {name}: (seed, N, D, m0, Q) {args} ef={ef} {dtype} "
+              f"{'with' if cache else 'without'} the neighbour-row cache: "
+              f"ids in order, max_abs_err {err}", flush=True)
+        out["n203"] = max(out["n203"], err)
+    # (c) 1M x 2048, generated on the card
     db = unit_rows(torch.randn(N_BIG, D, generator=g, device=dev))
     nbr = random_table(N_BIG, M0, g, dev)
     pick = torch.randint(0, N_BIG, (Q_BIG,), generator=g, device=dev)
     q = unit_rows(db[pick] + 0.5 * torch.randn(Q_BIG, D, generator=g, device=dev) / D ** 0.5)
     starts = torch.randint(0, N_BIG, (Q_BIG,), generator=g, device=dev, dtype=torch.int32)
     for dtype in (torch.float32, torch.bfloat16):
-        rec = measure(bs, db.to(dtype).contiguous(), nbr, q, starts, flush, plain_reps=3)
+        dbt = db.to(dtype).contiguous()
+        rec = measure(bs, dbt, nbr, q, starts, flush, tie=1e-3, plain_reps=3)
         out[f"1m_{rec['dtype']}"] = rec
         print("beam_search at 1M:", json.dumps(rec), flush=True)
+        if dtype == torch.float32:
+            out["clocks_1m"] = phase_split(bs, "1M f32 Q=70", dbt, nbr, q, starts, flush)
+        del dbt
     del db, nbr
     torch.cuda.empty_cache()
     return out
@@ -244,6 +343,7 @@ def main():
         to_flax_variables,
     )
     from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
+    from image_search_engine_for_historical_research_tpu_torch.ops import beam_search_cases
     from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
 
     dev = torch.device("cuda")
@@ -254,11 +354,16 @@ def main():
 
     # 1. build every kernel and native library, all compilers started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(native.load, name) for name in ("beam_search", "hnsw")]:
+    libs = ("beam_search", "beam_search_clocks", "hnsw")
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        for f in [pool.submit(native.load, name) for name in libs]:
             f.result()
     print(f"build_s {time.perf_counter() - t0:.2f}")
-    print(native.BUILD_LOGS.get("beam_search", "").strip())
+    for name in libs[:2]:
+        log = native.build_log(name)
+        print(f"nvcc -Xptxas -v, {name}:\n{log.strip()}")
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+        check(spills and not any(int(n) for n in spills), f"{name}: ptxas reports spills")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
@@ -269,7 +374,7 @@ def main():
         flush_buf.zero_()
 
     # 2. kernel against plain on the card
-    kres = kernel_phase(bs, dev, flush)
+    kres = kernel_phase(bs, beam_search_cases, dev, flush)
 
     # 3. the main path through the entry points
     rng = np.random.default_rng(0)
@@ -356,9 +461,11 @@ def main():
         served = []
         for q in (1, 32):
             rec = measure(bs, idx.vectors, idx.nbr0, qv[:q].contiguous(),
-                          starts[:q].contiguous(), flush)
+                          starts[:q].contiguous(), flush, tie=None)
             served.append(rec)
             print("beam_search served:", json.dumps(rec), flush=True)
+        phase_split(bs, "served Q=1", idx.vectors, idx.nbr0, qv[:1].contiguous(),
+                    starts[:1].contiguous(), flush)
         svc.close()
 
     err = max([kres["n203"], kres["1m_float32"]["max_abs_err"],
@@ -372,10 +479,12 @@ def main():
         "launches": launches,
         "max_abs_err": err,
         "ms": main_rec["ms"],
+        "device_ms": main_rec["device_ms"],
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"],
         "bound_by": main_rec["bound_by"],
         "library_ms": None,
+        "us_per_hop": main_rec["us_per_hop"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

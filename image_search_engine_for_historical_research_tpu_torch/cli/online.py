@@ -18,6 +18,7 @@ import numpy as np
 from ..data import load_path_features
 from ..device import resolve_device
 from ..index import load_index
+from ..ops.beam_search import check_ef
 from ..serving.app import SearchService, serve
 from .common import add_common_args, load_network, parse_scales
 
@@ -67,6 +68,11 @@ def make_service(args) -> SearchService:
     vecs = np.concatenate(vecs_l, axis=0)
     name = "_".join(d.replace("/", "_") for d in datasets)
     index = load_index(f"{args.outputs}/{name}/hnsw", device=args.device)
+    if index.device.type == "cuda":
+        try:  # refuse a K the kernel cannot serve now, not on every query
+            check_ef(max(index.ef_default, args.K))
+        except ValueError as e:
+            raise SystemExit(f"--K {args.K}: {e}") from None
     model = load_network(args.network_path, args.arch, device=args.device)
     return SearchService(
         model, index, vecs, paths, K=args.K,

@@ -10,6 +10,9 @@ installed or downloaded.
 - ``beam_search``: the HNSW level-0 beam-search kernel,
   ``csrc/beam_search.cu``, with ``nvcc`` for ``sm_90a`` (Hopper), as a shared
   library with a plain C interface.
+- ``beam_search_clocks``: the same source built with
+  ``-DBEAM_SEARCH_PHASE_CLOCKS``, which adds per-phase ``clock64()`` sums
+  (a measurement build; the served path never loads it).
 """
 
 from __future__ import annotations
@@ -24,14 +27,12 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# library -> (compiler, sources relative to the package)
+# library -> (compiler, sources relative to the package, extra flags)
 _LIBRARIES = {
-    "hnsw": ("g++", ["native/hnsw_build.cpp"]),
-    "beam_search": ("nvcc", ["csrc/beam_search.cu"]),
+    "hnsw": ("g++", ["native/hnsw_build.cpp"], []),
+    "beam_search": ("nvcc", ["csrc/beam_search.cu"], []),
+    "beam_search_clocks": ("nvcc", ["csrc/beam_search.cu"], ["-DBEAM_SEARCH_PHASE_CLOCKS"]),
 }
-
-# compiler output of the last build of each library (nvcc's -Xptxas -v report)
-BUILD_LOGS: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,21 +49,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _commands(compiler: str, srcs: List[str], out: str) -> List[List[str]]:
+def _commands(compiler: str, srcs: List[str], out: str,
+              flags: List[str]) -> List[List[str]]:
     """Candidate build commands, tried in order (the first that works wins)."""
     if compiler == "g++":
-        base = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", out, *srcs]
+        base = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *flags, "-o", out, *srcs]
         return [base + ["-march=native"], base]
     return [[
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
         "-o", out, *srcs,
     ]]
 
 
 def build(name: str) -> str:
     """Compile library ``name`` if it is missing or stale; return its path."""
-    compiler, rel = _LIBRARIES[name]
+    compiler, rel, flags = _LIBRARIES[name]
     srcs = [os.path.join(_PKG, s) for s in rel]
     so_path = os.path.join(BUILD_DIR, f"lib{name}.so")
     newest_src = max(os.path.getmtime(s) for s in srcs)
@@ -73,14 +75,23 @@ def build(name: str) -> str:
     # workers) never load a half-written library
     tmp = f"{so_path}.{os.getpid()}.tmp"
     errors = []
-    for cmd in _commands(compiler, srcs, tmp):
+    for cmd in _commands(compiler, srcs, tmp, flags):
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode == 0:
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
+            with open(f"{tmp}.log", "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            os.replace(f"{tmp}.log", f"{so_path}.log")
             os.replace(tmp, so_path)
             return so_path
         errors.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     raise RuntimeError(f"building lib{name}.so failed:\n" + "\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """Compiler output of the build of library ``name`` (nvcc's -Xptxas -v
+    report), kept beside the library."""
+    with open(os.path.join(BUILD_DIR, f"lib{name}.so.log")) as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,13 +4,30 @@ Port of the JAX package's only TPU kernel, ``_beam_kernel`` with its wrapper
 ``pallas_beam_search``
 (``image_search_engine_for_historical_research_tpu/ops/pallas_graph.py:55-367``).
 The kernel is ``csrc/beam_search.cu``, compiled with ``nvcc`` for ``sm_90a``
-into a shared library and launched through ``ctypes``. What bounds it, and
-how its design answers that, is written at the top of that source: a chain of
-dependent hops, each reading one neighbour row and about 8 KB (D = 2048, f32)
-for every fresh neighbour, so it is latency-bound.
+into a shared library and launched through ``ctypes``.
+
+What bounds it: a chain of dependent hops (one per expanded node), each
+needing the popped node's neighbour row, then about 8 KB (D = 2048, f32) for
+every fresh neighbour, then a serial insert and pop. The kernel's design
+answers each link of that chain (details at the top of the source):
+
+- the neighbour row of every fresh node is copied into shared memory
+  (``cp.async``) while its vector is scored and kept beside the beam slot it
+  enters, so a pop never waits on device memory for the next row (where this
+  cache does not fit in shared memory, the wrapper launches without it and
+  the pop reads the row from device memory);
+- each scoring warp issues all of a 2048-wide row's 16-byte loads before its
+  first FMA, so a hop's rows cost one round trip per row a warp takes;
+- warp 0 keeps the beam's distances as order-preserving uint32 keys in
+  registers (up to 64 a lane, so ``ef`` pads to at most ``MAX_EF_PAD``) and
+  finds the worst slot and the next pop with ``redux.sync`` reductions (first
+  index on ties);
+- warp 0 and the scoring warps meet at two named barriers a hop.
 
 ``beam_search`` runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. ``launches`` counts kernel launches.
+``beam_search_phase_clocks`` runs the measurement build (per-phase
+``clock64()`` sums, ``CLOCK_SLOTS``); it is never on the served path.
 """
 
 from __future__ import annotations
@@ -24,10 +41,18 @@ import torch
 
 INF = float(np.float32(3.4e38))  # the TPU kernel's sentinel, exact in f32
 SMEM_LIMIT = 232448              # bytes of shared memory one block may use (H100)
+MAX_EF_PAD = 2048                # the kernel keeps ef_pad / 32 beam slots a lane in registers
+
+# per-block slots of ``beam_search_phase_clocks``: clock64() cycles of warp 0's
+# neighbour-row and visited phase (A), of the row distances (B, the longest
+# scoring warp's span on its own clock), of the inserts and the pop (C) and of
+# warp 0's wait for B beyond B (barrier); then hops, hops whose pop took a
+# slot filled in that hop, fresh rows, and the block's cycles from start to end
+CLOCK_SLOTS = ("A", "B", "C", "barrier", "hops", "same_hop_pops", "fresh_rows", "total")
 
 launches = 0                     # kernel launches since import (or last reset)
 _count_lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def padded_ef(ef: int) -> int:
@@ -61,26 +86,70 @@ def beam_search(
     return _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps)
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def check_ef(ef: int) -> int:
+    """``ef``'s beam slots (``padded_ef``); raises where the kernel cannot
+    hold them."""
+    if ef < 1:
+        raise ValueError(f"beam_search: ef must be >= 1, got {ef}")
+    ef_pad = padded_ef(ef)
+    if ef_pad > MAX_EF_PAD:
+        raise ValueError(f"beam_search: ef={ef} pads to {ef_pad} beam slots; the kernel "
+                         f"takes at most {MAX_EF_PAD} (ef <= {MAX_EF_PAD})")
+    return ef_pad
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded beam-search library."""
+    lib.beam_search_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.beam_search_smem_bytes.restype = ctypes.c_size_t
+    head = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.beam_search_launch.argtypes = head + [ctypes.c_void_p] * 3
+    lib.beam_search_launch.restype = ctypes.c_int
+    if hasattr(lib, "beam_search_launch_clocks"):
+        lib.beam_search_launch_clocks.argtypes = head + [ctypes.c_void_p] * 4
+        lib.beam_search_launch_clocks.restype = ctypes.c_int
+    lib.beam_search_error_string.argtypes = [ctypes.c_int]
+    lib.beam_search_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _library(name: str = "beam_search") -> ctypes.CDLL:
+    if name not in _libs:
         from ..native import load
 
-        lib = load("beam_search")
-        lib.beam_search_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.beam_search_smem_bytes.restype = ctypes.c_size_t
-        lib.beam_search_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-        )
-        lib.beam_search_launch.restype = ctypes.c_int
-        lib.beam_search_error_string.argtypes = [ctypes.c_int]
-        lib.beam_search_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = _bind(load(name))
+    return _libs[name]
 
 
-def _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps):
+def beam_search_phase_clocks(db, nbr0, queries, starts, ef: int = 100, max_steps: int = 0):
+    """The kernel's measurement build (``-DBEAM_SEARCH_PHASE_CLOCKS``) on CUDA
+    tensors: ``(scores, ids, clocks)`` with ``clocks`` a ``(Q, 8)`` int64
+    tensor of ``CLOCK_SLOTS``. Not counted in ``launches``."""
+    if db.device.type != "cuda":
+        raise ValueError("beam_search_phase_clocks: the clocks exist only on the card")
+    return _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps, with_clocks=True)
+
+
+def shared_memory_plan(N: int, D: int, m0: int, ef_pad: int):
+    """``(cache, bytes)`` of a launch: with the neighbour-row cache where a
+    block's shared memory holds it, else without; raises for an N that fits
+    neither way. Needs the kernel's library (the card's toolkit)."""
+    lib = _library()
+    for cache in (1, 0):
+        smem = lib.beam_search_smem_bytes(N, D, m0, ef_pad, cache)
+        if smem <= SMEM_LIMIT:
+            return cache, smem
+    n_max = (SMEM_LIMIT - lib.beam_search_smem_bytes(0, D, m0, ef_pad, 0)) // 4 * 32
+    raise ValueError(
+        f"beam_search: N={N} needs {smem} bytes of shared memory for the "
+        "visited bitset, query row and candidates; a block has "
+        f"{SMEM_LIMIT}, so N <= {n_max} at D={D}, m0={m0}, ef_pad={ef_pad}. "
+        "A visited set for larger N is an open ROADMAP item."
+    )
+
+
+def _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps, with_clocks=False):
+    """Launch the served build (counted) or the phase-clock build."""
     global launches
     N, D = db.shape
     Q = queries.shape[0]
@@ -103,32 +172,30 @@ def _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps):
     if D % 8 or db.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError("beam_search: the kernel needs D % 8 == 0 and "
                          "16-byte aligned db and query rows")
-    if ef < 1:
-        raise ValueError(f"beam_search: ef must be >= 1, got {ef}")
+    ef_pad = check_ef(ef)
     max_steps = max_steps or 4 * ef
-    ef_pad = padded_ef(ef)
-    lib = _library()
-    smem = lib.beam_search_smem_bytes(N, D, m0, ef_pad)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"beam_search: N={N} needs {smem} bytes of shared memory for the "
-            f"visited bitset, query row and beam; a block has {SMEM_LIMIT}. "
-            "A visited set for larger N is an open ROADMAP item."
-        )
+    cache, _ = shared_memory_plan(N, D, m0, ef_pad)
+    lib = _library("beam_search_clocks" if with_clocks else "beam_search")
     out_ids = torch.empty((Q, ef_pad), dtype=torch.int32, device=dev)
     out_d = torch.empty((Q, ef_pad), dtype=torch.float32, device=dev)
+    clocks = (torch.zeros((Q, len(CLOCK_SLOTS)), dtype=torch.int64, device=dev)
+              if with_clocks else None)
     if Q == 0:
-        return _sorted_output(out_d, out_ids, ef)
-    with torch.cuda.device(dev):
-        rc = lib.beam_search_launch(
-            db.data_ptr(), int(db.dtype == torch.bfloat16), nbr0.data_ptr(),
+        return _sorted_output(out_d, out_ids, ef) + ((clocks,) if with_clocks else ())
+    args = [db.data_ptr(), int(db.dtype == torch.bfloat16), nbr0.data_ptr(),
             queries.data_ptr(), starts.data_ptr(), N, D, m0, Q, ef_pad,
-            max_steps, out_ids.data_ptr(), out_d.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            max_steps, cache, out_ids.data_ptr(), out_d.data_ptr()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if with_clocks:
+            rc = lib.beam_search_launch_clocks(*args, clocks.data_ptr(), stream)
+        else:
+            rc = lib.beam_search_launch(*args, stream)
     if rc != 0:
         msg = lib.beam_search_error_string(rc).decode()
         raise RuntimeError(f"beam_search kernel launch failed: CUDA error {rc} ({msg})")
+    if with_clocks:
+        return _sorted_output(out_d, out_ids, ef) + (clocks,)
     with _count_lock:
         launches += 1
     return _sorted_output(out_d, out_ids, ef)

@@ -15,7 +15,12 @@ from image_search_engine_for_historical_research_tpu.ops.pallas_graph import (
 )
 from image_search_engine_for_historical_research_tpu_torch.index import HNSWIndex
 from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
-from torch_port_helpers import assert_same_beams
+from image_search_engine_for_historical_research_tpu_torch.ops.beam_search_cases import (
+    EDGE_CASES,
+    NO_CACHE,
+    quarter_case,
+)
+from torch_port_helpers import assert_beams_in_order, assert_same_beams
 
 
 def _unit(x):
@@ -88,6 +93,31 @@ def test_plain_matches_pallas_padding_and_repeats():
     assert_same_beams(sj, ij, st, it)
 
 
+def test_plain_matches_pallas_duplicate_rows():
+    """Exact distance ties (rows drawn from 20 distinct ones, values k/4): the
+    first-index rules of the insert and the pop decide, id for id."""
+    db, nbr0, q, starts = quarter_case(11, 300, 64, 16, 6, dup=20)
+    (sj, ij), (st, it) = _both(db, nbr0, q, starts, ef=32)
+    assert_beams_in_order(sj, ij, st, it)
+
+
+def test_ef_limit():
+    """ef pads to 128-slot multiples; past the kernel's register beam it is
+    refused before anything launches (the CPU path has no such limit)."""
+    assert bs.check_ef(100) == 128 and bs.check_ef(bs.MAX_EF_PAD) == bs.MAX_EF_PAD
+    for ef in (0, bs.MAX_EF_PAD + 1):
+        with pytest.raises(ValueError, match="ef"):
+            bs.check_ef(ef)
+
+
+def test_phase_clocks_need_the_card():
+    db, nbr0, q, starts = (_t(a) for a in quarter_case(0, 50, 8, 8, 2))
+    launches = bs.launches
+    with pytest.raises(ValueError, match="only on the card"):
+        bs.beam_search_phase_clocks(db, nbr0, q, starts, ef=16)
+    assert bs.launches == launches
+
+
 def test_multi_seed_matches_pallas(graph):
     ix, q, _ = graph
     assert ix.coarse_ids is not None and ix.coarse_ids.shape[0] >= 3
@@ -122,3 +152,49 @@ def test_cuda_kernel_matches_plain():
         assert bs.launches == before + 1
         s2, i2 = bs.beam_search_reference(dbt, nbr0, q, starts, ef=100)
         assert_same_beams(s2.cpu(), i2.cpu(), s.cpu(), i.cpu(), atol=1e-3, tie=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_cuda_kernel_edge_cases(name):
+    """On the card, on exact (quarter-valued) data: the kernel and its phase
+    clock build give the plain version's beams id for id, in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    args, kw, ef, dtype = EDGE_CASES[name]
+    db, nbr0, q, starts = quarter_case(*args, **kw)
+    db = torch.from_numpy(db).cuda().to(getattr(torch, dtype)).contiguous()
+    nbr0, q, starts = (torch.from_numpy(a).cuda() for a in (nbr0, q, starts))
+    cache, _ = bs.shared_memory_plan(*db.shape, nbr0.shape[1], bs.padded_ef(ef))
+    assert bool(cache) == (name not in NO_CACHE)
+    before = bs.launches
+    s, i = bs.beam_search(db, nbr0, q, starts, ef=ef)
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1
+    s2, i2 = bs.beam_search_reference(db, nbr0, q, starts, ef=ef)
+    assert_beams_in_order(s2.cpu(), i2.cpu(), s.cpu(), i.cpu())
+    s3, i3, clocks = bs.beam_search_phase_clocks(db, nbr0, q, starts, ef=ef)
+    assert bs.launches == before + 1
+    assert_beams_in_order(s2.cpu(), i2.cpu(), s3.cpu(), i3.cpu())
+    hops = clocks[:, bs.CLOCK_SLOTS.index("hops")].cpu()
+    assert (hops >= 1).all() and (hops <= 4 * ef).all()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_limits():
+    """On the card: N above the shared-memory cap and ef above the register
+    beam raise, naming the limit; an N that fits only without the
+    neighbour-row cache launches without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    n, d = 4_000_000, 8
+    db = torch.zeros(n, d, device="cuda")
+    nbr0 = torch.full((n, 32), -1, dtype=torch.int32, device="cuda")
+    q = torch.zeros(1, d, device="cuda")
+    starts = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match=r"so N <= \d+ at D=8, m0=32, ef_pad=128"):
+        bs.beam_search(db[:n], nbr0, q, starts, ef=100)
+    with pytest.raises(ValueError, match="at most 2048"):
+        bs.beam_search(db[:1000], nbr0[:1000], q, starts, ef=2100)
+    assert bs.shared_memory_plan(1_700_000, d, 32, 128)[0] == 0
+    assert bs.shared_memory_plan(1_000_000, d, 32, 128)[0] == 1

@@ -102,3 +102,10 @@ def assert_same_beams(s_ref, i_ref, s_got, i_got, atol=1e-4, tie=1e-5):
             assert abs(ref[i] - s) <= atol, (r, i, ref[i], s)
         moved = i_ref[r] != i_got[r]
         np.testing.assert_allclose(s_got[r][moved], s_ref[r][moved], rtol=0, atol=tie)
+
+
+def assert_beams_in_order(s_ref, i_ref, s_got, i_got, atol=0.0):
+    """The same ids in the same order, and scores within ``atol``."""
+    np.testing.assert_array_equal(np.asarray(i_got), np.asarray(i_ref))
+    np.testing.assert_allclose(np.asarray(s_got), np.asarray(s_ref), rtol=0, atol=atol)
+
