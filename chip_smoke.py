@@ -19,16 +19,29 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    distances equal in order; then N=1,000,000 x 2048 (f32 and bf16) with a
    random m0=32 neighbour table, Q=70, ef=100, with the phase-clock split at
    f32.
-3. The main path through the entry points a user calls: 16 synthetic JPEGs
-   through ResNet101-SOLAR at full width (seeded, perturbed weights carried in
-   as Flax-layout numpy arrays through ``from_flax_variables``, saved as a
-   SOLAR checkpoint), 1024 px, three scales; a gallery of those 16 plus 4,096
-   clustered descriptors; ``build_hnsw`` + ``save_index``;
-   ``cli.online.make_service``; 4 WSGI POSTs, the same 4 images and 4 more
-   through ``query_image``, and one ``query_batch`` of 4. The kernel's launch
-   count is set to 0 just before and read just after; every search must have
-   launched it. One query on a CPU-built service must give the card's ids.
-4. Kernel and plain times at the served shapes (Q=1 and Q=32, ids equal in
+3. A device-built 1M graph: 1,000,000 x 2048 clustered unit rows (8,192
+   centres in a 64-d subspace, spread 0.1, bf16) made on the card from a
+   seeded generator; ``build_hnsw_device(m=16, k_candidates=64)`` with each
+   stage's seconds; structure checks; the exact top-100 of 70 gallery rows
+   (``FlatIndex``, with the flat scan's time and byte bound); recall@10 >=
+   0.95 through the kernel route and the lockstep route (``use_kernel=False``);
+   the kernel against its plain version on that graph (same id sets), timed.
+4. The main path through the entry points a user calls: 16 synthetic JPEGs
+   through ``cli.offline --matching-method L2`` (ResNet101-SOLAR at full
+   width, seeded, perturbed weights carried in as Flax-layout numpy arrays
+   through ``from_flax_variables`` and saved as a SOLAR checkpoint; 1024 px,
+   three scales) into the feature store; 4,096 clustered descriptors as a
+   second store; ``cli.offline --ifextracted --matching-method HNSW
+   --ifgenerate`` over both (the native host build, m=16, ef=100, and its
+   probe query through the kernel); ``cli.online.make_service``; 4 WSGI
+   POSTs, the same 4 images and 4 more through ``query_image``, and one
+   ``query_batch`` of 4. The kernel's launch count is set to 0 just before
+   each path and read just after; every HNSW search must have launched it.
+   One query on a CPU-built service must give the card's ids. Then an
+   ``--matching-method L2`` service on the card, whose rank 0 must equal the
+   HNSW service's for the 4 POSTs, and a CPU-built L2 service with the card's
+   L2 ids for one query.
+5. Kernel and plain times at the served shapes (Q=1 and Q=32, ids equal in
    order), and the phase-clock split at Q=1.
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
@@ -264,6 +277,116 @@ def kernel_phase(bs, cases, dev, flush):
     return out
 
 
+def clustered_rows(n, d, g, dev, n_centers=8192, d_eff=64, spread=0.1, chunk=131072):
+    """(n, d) bf16 unit rows near a d_eff-dimensional subspace: centres on the
+    d_eff sphere plus ``spread`` noise, embedded by a random (d_eff, d) map
+    (the JAX package's ``scripts/synth_data.py`` recipe). Isotropic noise in
+    2048 dimensions would make every row nearly orthogonal to every other."""
+    centers = unit_rows(torch.randn(n_centers, d_eff, generator=g, device=dev))
+    u = torch.randn(d_eff, d, generator=g, device=dev) / d ** 0.5
+    out = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, chunk):
+        c = min(chunk, n - s)
+        a = torch.randint(0, n_centers, (c,), generator=g, device=dev)
+        z = centers[a] + spread * torch.randn(c, d_eff, generator=g, device=dev)
+        out[s:s + c] = unit_rows(z @ u).to(torch.bfloat16)
+    return out
+
+
+def coarse_starts(ix, q):
+    """The kernel route's entry points: each query's best coarse node by
+    inner product (``HNSWIndex.search_kernel``)."""
+    coarse = ix.vectors[ix.coarse_ids.long()].float()
+    return ix.coarse_ids[torch.topk(q @ coarse.T, 1, dim=1).indices[:, 0]].contiguous()
+
+
+def recall_at(exact, got, k):
+    exact, got = exact[:, :k].cpu().tolist(), got[:, :k].cpu().tolist()
+    return float(np.mean([len(set(e) & set(r)) / k for e, r in zip(exact, got)]))
+
+
+def graph_phase(bs, dev, flush, card):
+    """A device-built HNSW graph over 1M x 2048: build, structure, recall of
+    both search routes against the exact top-k, the kernel against plain."""
+    from image_search_engine_for_historical_research_tpu_torch.index import (
+        FlatIndex,
+        build_hnsw_device,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.ops.topk import exact_topk
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    db = clustered_rows(N_BIG, D, g, dev)
+    # one chunk of the build's candidate pass (8,192 rows against 16,384, k=65):
+    # the bf16 GEMM with f32 scores the port uses, its top-k, and the f32
+    # upcast the port does not use on the card
+    qc, xc = db[:8192], db[:16384]
+    chunk_rec = {"knn_chunk": "8192 x 16384 x 2048 bf16",
+                 "mm_out_f32_ms": time_ms(lambda: torch.mm(qc, xc.T, out_dtype=torch.float32),
+                                          10, flush),
+                 "upcast_f32_mm_ms": time_ms(lambda: qc.float() @ xc.float().T, 10, flush)}
+    s = torch.mm(qc, xc.T, out_dtype=torch.float32)
+    chunk_rec["topk65_ms"] = time_ms(lambda: torch.topk(s, 65, dim=1), 10, flush)
+    print("candidate pass, one chunk:", json.dumps(chunk_rec), f"({card})", flush=True)
+    del qc, xc, s
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"device graph build, {N_BIG} x {D} bf16, m=16, k_candidates=64 ({card}):",
+          flush=True)
+    t0 = time.perf_counter()
+    ix = build_hnsw_device(db, m=16, normalize=False, k_candidates=64, verbose=True,
+                           device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"device graph build_s {build_s} ({card}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del db
+    nbr, n = ix.nbr0, ix.n
+    check(tuple(nbr.shape) == (N_BIG, M0), f"nbr0 shape {tuple(nbr.shape)}")
+    check(bool(((nbr >= -1) & (nbr < n)).all()), "nbr0 holds an invalid id")
+    rows = torch.arange(n, device=dev)[:, None]
+    check(not bool(((nbr == rows) & (nbr >= 0)).any()), "nbr0 holds a self-loop")
+    degree = (nbr >= 0).sum(1)
+    check(int(degree.min()) >= 1, "a node without neighbours")
+    print(f"structure: no self-loops, ids valid, neighbours a row min {int(degree.min())} "
+          f"mean {float(degree.float().mean())}, coarse nodes {ix.coarse_ids.shape[0]}",
+          flush=True)
+
+    q = ix.vectors[:Q_BIG].float().contiguous()
+    flat = FlatIndex(vectors=ix.vectors, storage_dtype="bfloat16")
+    _, exact = flat.search(q, 100)
+    run = lambda: exact_topk(q, ix.vectors, 100, matmul_dtype=torch.bfloat16)  # noqa: E731
+    flat_ms = time_ms(run, 20, flush)
+    flat_bytes = ix.vectors.numel() * 2 + q.numel() * 4 + Q_BIG * 100 * 12
+    flat_rec = {"exact_topk": "1M bf16", "N": n, "D": D, "Q": Q_BIG, "k": 100, "ms": flat_ms,
+                "bound_ms": flat_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "flops": 2 * Q_BIG * n * D, "mm_out_dtype": "torch.mm(out_dtype=float32)"}
+    print("flat scan:", json.dumps(flat_rec), f"({card})", flush=True)
+
+    bs.launches = 0
+    _, ids_k = ix.search(q, 10, ef=EF)
+    torch.cuda.synchronize()
+    launches = bs.launches
+    check(launches == 1, f"1M kernel route launched the kernel {launches} times, want 1")
+    t0 = time.perf_counter()
+    _, ids_l = ix.search(q, 10, ef=EF, use_kernel=False)
+    torch.cuda.synchronize()
+    lock_s = time.perf_counter() - t0
+    r_k, r_l = recall_at(exact, ids_k, 10), recall_at(exact, ids_l, 10)
+    print(f"recall@10 at ef={EF}: kernel route {r_k}, lockstep route {r_l} "
+          f"(lockstep search_s {lock_s})", flush=True)
+    check(r_k >= 0.95, f"kernel route recall@10 {r_k} < 0.95")
+    check(r_l >= 0.95, f"lockstep route recall@10 {r_l} < 0.95")
+
+    rec = measure(bs, ix.vectors, ix.nbr0, q, coarse_starts(ix, q), flush, tie=1e-3)
+    rec.update(graph="device-built", launches=launches, recall10_kernel=r_k,
+               recall10_lockstep=r_l, build_s=build_s,
+               fresh_rows_per_hop=rec["fresh_rows_per_query"] / rec["expansions_per_query"])
+    print("beam_search on the device-built 1M graph:", json.dumps(rec), f"({card})", flush=True)
+    del ix, flat, q, exact
+    torch.cuda.empty_cache()
+    return rec
+
+
 def write_images(directory, n, rng):
     """JPEGs larger than 1024 px: a two-colour grating of random frequency
     and angle, a few flat blocks and noise, so descriptors differ clearly."""
@@ -329,15 +452,12 @@ def main():
               file=sys.stderr)
         return 1
     from image_search_engine_for_historical_research_tpu_torch import native
-    from image_search_engine_for_historical_research_tpu_torch.cli import online
-    from image_search_engine_for_historical_research_tpu_torch.data import save_path_feature
-    from image_search_engine_for_historical_research_tpu_torch.index import (
-        build_hnsw,
-        save_index,
+    from image_search_engine_for_historical_research_tpu_torch.cli import offline, online
+    from image_search_engine_for_historical_research_tpu_torch.data import (
+        load_path_features,
+        save_path_feature,
     )
     from image_search_engine_for_historical_research_tpu_torch.models import (
-        DEFAULT_SCALES,
-        extract_vectors,
         from_flax_variables,
         init_network,
         to_flax_variables,
@@ -376,12 +496,15 @@ def main():
     # 2. kernel against plain on the card
     kres = kernel_phase(bs, beam_search_cases, dev, flush)
 
-    # 3. the main path through the entry points
+    # 3. a device-built HNSW graph at 1M
+    graph_rec = graph_phase(bs, dev, flush, card)
+
+    # 4. the main path through the entry points
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
-        img_dir = os.path.join(tmp, "images")
+        data_root = os.path.join(tmp, "data")
         outputs = os.path.join(tmp, "outputs")
-        paths = write_images(img_dir, 16, rng)
+        paths = write_images(os.path.join(data_root, "images"), 16, rng)
 
         base = init_network(seed=0, device="cpu")            # ResNet101-SOLAR, full width
         flax_vars = perturb_flax(to_flax_variables(base.module.state_dict()), rng)
@@ -389,32 +512,40 @@ def main():
         torch.save({"state_dict": from_flax_variables(flax_vars), "meta": base.meta}, ckpt)
         del base
 
-        argv = ["--datasets", "gallery", "--outputs", outputs, "--data-root", img_dir,
-                "--matching-method", "HNSW", "--network-path", ckpt, "--K", "10"]
-        model = online.load_network(ckpt, device="cuda")
-        t0 = time.perf_counter()
-        real = extract_vectors(model, paths, image_size=1024, scales=DEFAULT_SCALES,
-                               batch_size=4)
-        torch.cuda.synchronize()
-        print(f"gallery extract_s {time.perf_counter() - t0:.3f} for 16 images at 1024 px, "
-              f"3 scales ({card})")
+        common = ["--outputs", outputs, "--data-root", data_root, "--network-path", ckpt,
+                  "--device", "cuda"]
+
+        def offline_run(label, argv):
+            """One ``cli.offline`` run with the kernel's launches counted."""
+            bs.launches = 0
+            t0 = time.perf_counter()
+            check(offline.main(argv + common) == 0, f"cli.offline {label} failed")
+            torch.cuda.synchronize()
+            print(f"cli.offline {label}: {time.perf_counter() - t0} s, beam kernel "
+                  f"launches {bs.launches} ({card})", flush=True)
+            return bs.launches
+
+        check(offline_run("L2, extract 16 images", [
+            "--datasets", "images", "--matching-method", "L2", "--batch-size", "4"]) == 0,
+            "the L2 route launched the beam kernel")
+        real, rel = load_path_features("images", root=outputs)
         check(real.shape == (16, 2048) and np.isfinite(real).all(), "bad descriptors")
+        check(rel == [f"images/img{i:02d}.jpg" for i in range(16)], f"stored paths {rel}")
         np.testing.assert_allclose(np.linalg.norm(real, axis=1), 1.0, atol=1e-4)
-        del model
 
         centers = rng.standard_normal((64, 2048))
         synth = centers[rng.integers(0, 64, 4096)] + 0.6 * rng.standard_normal((4096, 2048))
         synth /= np.linalg.norm(synth, axis=1, keepdims=True)
+        save_path_feature("synthetic", synth.astype(np.float32),
+                          [f"synthetic/{i:05d}" for i in range(4096)], root=outputs)
+        check(offline_run("HNSW over images,synthetic (host build, m=16, ef=100)", [
+            "--datasets", "images,synthetic", "--ifextracted", "--matching-method", "HNSW",
+            "--ifgenerate"]) == 2, "the HNSW probe (warm-up + timed query) did not "
+                                   "launch the beam kernel twice")
         gallery = np.concatenate([real, synth]).astype(np.float32)
-        rel = [os.path.basename(p) for p in paths] + [f"synthetic/{i:05d}" for i in range(4096)]
-        save_path_feature("gallery", gallery, rel, root=outputs)
-        t0 = time.perf_counter()
-        ix = build_hnsw(gallery, m=16, ef_construction=100, device="cuda")
-        print(f"hnsw build_s {time.perf_counter() - t0:.1f} for {gallery.shape[0]} x 2048 "
-              "(host, native)", flush=True)
-        save_index(ix, os.path.join(outputs, "gallery", "hnsw"))
-        del ix
 
+        argv = ["--datasets", "images,synthetic", "--outputs", outputs, "--data-root", data_root,
+                "--matching-method", "HNSW", "--network-path", ckpt, "--K", "10"]
         svc = online.make_service(online.build_parser().parse_args(argv + ["--device", "cuda"]))
         app = make_wsgi_app(svc)
         post(app, paths[15])                                 # warm-up, outside the count
@@ -451,13 +582,38 @@ def main():
         check(cpu_ids == gpu_ids, "CPU and GPU services disagree")
         cpu.close()
 
-        # 4. the kernel at the served shapes: Q=1 (a POST) and Q=32 (the largest slot)
+        # the exact route: --matching-method L2 over the same stores
+        argv_l2 = [("L2" if a == "HNSW" else a) for a in argv]
+        parse = online.build_parser().parse_args
+        svc_l2 = online.make_service(parse(argv_l2 + ["--device", "cuda"]))
+        app_l2 = make_wsgi_app(svc_l2)
+        post(app_l2, paths[15])
+        bs.launches = 0
+        posted_l2 = [post(app_l2, p) for p in paths[:4]]
+        torch.cuda.synchronize()
+        check(bs.launches == 0, "the L2 service launched the beam kernel")
+        for i, (h, e) in enumerate(zip(posted, posted_l2)):
+            h_ids, e_ids = [r["id"] for r in h["results"]], [r["id"] for r in e["results"]]
+            t = e["timing"]
+            print(f"POST img{i:02d} HNSW top-10 {h_ids} L2 top-10 {e_ids} overlap "
+                  f"{len(set(h_ids) & set(e_ids))}/10; L2 extract_s {t['extract_s']:.4f} "
+                  f"search_s {t['search_s']:.4f} rerank_s {t['rerank_s']:.4f} ({card})")
+            check(e_ids[0] == h_ids[0] == i, f"POST image {i}: L2 rank 0 {e_ids[0]}, "
+                                             f"HNSW rank 0 {h_ids[0]}")
+        cpu_l2 = online.make_service(parse(argv_l2 + ["--device", "cpu"]))
+        cpu_l2_ids = [r["id"] for r in cpu_l2.query_image(paths[1])[0]]
+        gpu_l2_ids = [r["id"] for r in posted_l2[1]["results"]]
+        print(f"L2 cpu ids {cpu_l2_ids} gpu ids {gpu_l2_ids}", flush=True)
+        check(cpu_l2_ids == gpu_l2_ids, "CPU and GPU L2 services disagree")
+        cpu_l2.close()
+        svc_l2.close()
+
+        # 5. the kernel at the served shapes: Q=1 (a POST) and Q=32 (the largest slot)
         qv = torch.as_tensor(gallery[:32], device=dev)
         qv = unit_rows(qv + 0.02 * torch.randn(qv.shape, device=dev,
                                                generator=torch.Generator(device=dev).manual_seed(1)))
         idx = svc.index
-        top = torch.topk(qv @ idx.vectors[idx.coarse_ids.long()].T, 1, dim=1).indices[:, 0]
-        starts = idx.coarse_ids[top].contiguous()
+        starts = coarse_starts(idx, qv)
         served = []
         for q in (1, 32):
             rec = measure(bs, idx.vectors, idx.nbr0, qv[:q].contiguous(),
@@ -469,7 +625,8 @@ def main():
         svc.close()
 
     err = max([kres["n203"], kres["1m_float32"]["max_abs_err"],
-               kres["1m_bfloat16"]["max_abs_err"]] + [r["max_abs_err"] for r in served])
+               kres["1m_bfloat16"]["max_abs_err"], graph_rec["max_abs_err"]]
+              + [r["max_abs_err"] for r in served])
     main_rec = served[0]
     print(json.dumps({"kernels": [{
         "name": "beam_search",

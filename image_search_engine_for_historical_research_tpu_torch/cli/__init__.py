@@ -1,4 +1,6 @@
 """Command-line entry points.
 
-- ``online`` -- the query service over WSGI (``--matching-method HNSW``).
+- ``offline``   -- extract a gallery, save its feature store, build its index.
+- ``online``    -- the query service over WSGI (``--matching-method L2 | HNSW``).
+- ``benchmark`` -- the revisited Oxford/Paris mAP protocol.
 """

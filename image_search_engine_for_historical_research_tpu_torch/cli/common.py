@@ -1,7 +1,9 @@
-"""Shared CLI plumbing: network loading, common flags, scale parsing.
+"""Shared CLI plumbing: network loading, common flags, scale parsing,
+matcher dispatch.
 
 Port of ``image_search_engine_for_historical_research_tpu/cli/common.py``
-(:20-82) for the flags the ported path uses, plus ``--device``.
+(:20-92) for the flags the ported matchers use, plus ``--device``. ``--opq``
+and ``--refine-m`` wait for the PQ family.
 """
 
 from __future__ import annotations
@@ -51,9 +53,12 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--multiscale", default="[1, 2**(1/2), 1/2**(1/2)]",
                         help="python list of scales (reference flag format)")
     parser.add_argument("--matching-method", default="L2",
-                        help="HNSW (ported); L2 | PQ | ANNOY | PQ_HNSW | IVFPQ "
-                             "are not ported yet")
+                        help="L2 (exact) | HNSW are ported; PQ | ANNOY | PQ_HNSW | "
+                             "IVFPQ | LSH exit naming their ROADMAP item")
+    parser.add_argument("--ifgenerate", action="store_true",
+                        help="(re)build index artifacts instead of loading")
     parser.add_argument("--outputs", default="outputs")
+    parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
     return parser
@@ -61,3 +66,31 @@ def add_common_args(parser: argparse.ArgumentParser):
 
 def parse_scales(expr: str) -> Sequence[float]:
     return tuple(float(s) for s in eval(expr, {"__builtins__": {}}))  # noqa: S307
+
+
+def check_matcher(method: str) -> None:
+    """Exit at start-up on a matching method that is unknown or not ported."""
+    from ..index.matchers import MATCHERS, NOT_PORTED, not_ported_message
+
+    if method not in MATCHERS:
+        raise SystemExit(f"unknown matching method {method!r}; have {sorted(MATCHERS)}")
+    if method in NOT_PORTED:
+        raise SystemExit(not_ported_message(method))
+
+
+def dispatch_matcher(method: str, *args, **kwargs):
+    """Run matcher ``method`` (``index.matchers.MATCHERS``)."""
+    from ..index.matchers import MATCHERS
+
+    check_matcher(method)
+    return MATCHERS[method](*args, **kwargs)
+
+
+def matcher_kwargs(args, dataset: str) -> dict:
+    """The matcher's keyword arguments from the CLI flags: the device, and
+    for an index with an artifact its name, ``--ifgenerate`` and
+    ``--outputs``."""
+    if args.matching_method == "L2":
+        return {"device": args.device}
+    return {"dataset": dataset, "ifgenerate": args.ifgenerate, "outputs": args.outputs,
+            "device": args.device}

@@ -1,8 +1,9 @@
 """Online serving CLI: load features + index, start the query service.
 
 Port of ``image_search_engine_for_historical_research_tpu/cli/online.py`` for
-``--matching-method HNSW``. Other matching methods and ``--coalesce`` exit
-with the ROADMAP item that ports them.
+``--matching-method L2`` (a ``FlatIndex`` over the stored features, built at
+start-up) and ``HNSW`` (the artifact ``cli.offline`` wrote). Other matching
+methods and ``--coalesce`` exit with the ROADMAP item that ports them.
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.online \
@@ -17,22 +18,10 @@ import numpy as np
 
 from ..data import load_path_features
 from ..device import resolve_device
-from ..index import load_index
+from ..index import build_flat, load_index
 from ..ops.beam_search import check_ef
 from ..serving.app import SearchService, serve
-from .common import add_common_args, load_network, parse_scales
-
-# matching method -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "L2": "FlatIndex / exact_topk (the L2 route)",
-    "PQ": "the PQ family",
-    "Nano_PQ": "the PQ family",
-    "PQ_HNSW": "the PQ family",
-    "HNSW_NanoPQ": "the PQ family",
-    "IVFPQ": "the PQ family",
-    "ANNOY": "the remaining matchers",
-    "LSH": "the remaining matchers",
-}
+from .common import add_common_args, check_matcher, load_network, parse_scales
 
 
 def build_parser():
@@ -53,12 +42,7 @@ def build_parser():
 
 def make_service(args) -> SearchService:
     resolve_device(args.device)
-    if args.matching_method != "HNSW":
-        item = _NOT_PORTED.get(args.matching_method, "an unknown method")
-        raise SystemExit(
-            f"--matching-method {args.matching_method} is not ported yet: "
-            f"see ROADMAP, {item}. The port serves --matching-method HNSW."
-        )
+    check_matcher(args.matching_method)
     datasets = args.datasets.split(",")
     vecs_l, paths = [], []
     for ds in datasets:
@@ -66,13 +50,16 @@ def make_service(args) -> SearchService:
         vecs_l.append(v)
         paths.extend(p)
     vecs = np.concatenate(vecs_l, axis=0)
-    name = "_".join(d.replace("/", "_") for d in datasets)
-    index = load_index(f"{args.outputs}/{name}/hnsw", device=args.device)
-    if index.device.type == "cuda":
-        try:  # refuse a K the kernel cannot serve now, not on every query
-            check_ef(max(index.ef_default, args.K))
-        except ValueError as e:
-            raise SystemExit(f"--K {args.K}: {e}") from None
+    if args.matching_method == "L2":
+        index = build_flat(vecs, device=args.device)
+    else:  # HNSW
+        name = "_".join(d.replace("/", "_") for d in datasets)
+        index = load_index(f"{args.outputs}/{name}/hnsw", device=args.device)
+        if index.device.type == "cuda":
+            try:  # refuse a K the kernel cannot serve now, not on every query
+                check_ef(max(index.ef_default, args.K))
+            except ValueError as e:
+                raise SystemExit(f"--K {args.K}: {e}") from None
     model = load_network(args.network_path, args.arch, device=args.device)
     return SearchService(
         model, index, vecs, paths, K=args.K,

@@ -2,14 +2,16 @@
 
 The port's own copy of part of
 ``image_search_engine_for_historical_research_tpu/data/images.py`` (:23-85,
-:160-215): truncated-file-tolerant PIL loading, test-mode bbx crop +
-thumbnail, ImageNet normalization, and ``bucket_batches``, which groups
+:160-225): truncated-file-tolerant PIL loading, test-mode bbx crop +
+thumbnail, ImageNet normalization, ``bucket_batches``, which groups
 variable-aspect images into canvases rounded up to multiples of 32 (the
-backbone's stride) with validity masks.
+backbone's stride) with validity masks, and the recursive jpg listing
+``path_all_jpg``.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
@@ -117,3 +119,14 @@ def iter_test_images(
     for i, p in enumerate(paths):
         bbx = bbxs[i] if bbxs is not None else None
         yield i, load_test_image(p, imsize, bbx)
+
+
+def path_all_jpg(directory: str, start: Optional[str] = None):
+    """Recursive sorted ``.jpg`` listing and the paths relative to ``start``
+    (default ``directory``)."""
+    paths = []
+    for dirpath, _, filenames in os.walk(directory):
+        paths += [os.path.join(dirpath, f) for f in filenames if f.endswith(".jpg")]
+    paths.sort()
+    rel = [os.path.relpath(p, start or directory) for p in paths]
+    return paths, rel

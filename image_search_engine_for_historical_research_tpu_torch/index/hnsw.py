@@ -6,9 +6,10 @@ Port of ``HNSWIndex`` and ``build_hnsw`` in
 One behaviour differs from the JAX default on purpose: ``search`` routes to
 the beam-search kernel (``use_kernel=True``, the counterpart of the JAX
 ``use_pallas=True``), because that kernel is the at-scale search path; the
-JAX default, the lockstep traversal ``hnsw_search_batch``
-(``use_kernel=False`` here), is not ported yet and raises. ``HNSWPQIndex`` is
-not ported yet.
+JAX default, the lockstep traversal ``hnsw_search_batch``, is
+``use_kernel=False`` here. The vectors may be f32 (``build_hnsw``) or bf16
+(``graph_build.build_hnsw_device``); artifacts store them as f32, as the JAX
+package does. ``HNSWPQIndex`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from ..device import resolve_device
 from ..native import load as load_native
 from ..ops import beam_search
-from ..ops.graph_search import hnsw_descend_entries
+from ..ops.graph_search import hnsw_descend_entries, hnsw_search_batch
 from .base import normalize_rows, register
 
 MAX_LEVELS = 6
@@ -56,7 +57,7 @@ def _build_graph(data: np.ndarray, m: int, m0: int, ef: int, seed: int):
 @register("hnsw")
 @dataclass
 class HNSWIndex:
-    vectors: torch.Tensor     # (N, D) f32, L2-normalized
+    vectors: torch.Tensor     # (N, D) f32 or bf16, L2-normalized
     nbr0: torch.Tensor        # (N, m0) int32, -1 padded
     nbru: torch.Tensor        # (MAX_LEVELS-1, N, m) int32, -1 padded
     entry: int
@@ -78,14 +79,13 @@ class HNSWIndex:
 
     def search(self, queries, k: int, ef: Optional[int] = None,
                use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Top-``k`` ``(scores, ids)``; scores are ``-squared L2`` (descending)."""
+        """Top-``k`` ``(scores, ids)``; scores are ``-squared L2`` (descending).
+        ``use_kernel=False`` takes the lockstep traversal (the JAX default)."""
         q = self._queries(queries)
         ef = ef or max(self.ef_default, k)
         if not use_kernel:
-            raise NotImplementedError(
-                "use_kernel=False (the lockstep traversal hnsw_search_batch) is "
-                "not ported yet; see ROADMAP"
-            )
+            return hnsw_search_batch(self.vectors, self.nbr0, self.nbru, self.entry, q, k, ef,
+                                     coarse_ids=self.coarse_ids)
         return self.search_kernel(q, k, ef)
 
     def search_kernel(self, queries, k: int, ef: int, n_seeds: int = 1):
@@ -102,8 +102,8 @@ class HNSWIndex:
         s = max(1, int(n_seeds))
         if use_coarse:
             s = min(s, int(self.coarse_ids.shape[0]))
-            if self._coarse_vecs is None:
-                self._coarse_vecs = self.vectors[self.coarse_ids.long()]
+            if self._coarse_vecs is None:   # in the queries' f32, as JAX casts them
+                self._coarse_vecs = self.vectors[self.coarse_ids.long()].to(q.dtype)
             _, top = torch.topk(q @ self._coarse_vecs.T, s, dim=1)
             starts = self.coarse_ids[top]                         # (Q, s)
         else:

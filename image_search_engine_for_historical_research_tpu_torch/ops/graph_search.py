@@ -1,18 +1,199 @@
-"""HNSW upper-level greedy descent, in plain PyTorch.
+"""HNSW graph traversal in plain PyTorch: the upper-level greedy descent and
+the lockstep level-0 beam search over raw vectors.
 
-Port of ``hnsw_descend_entries`` and its greedy descent in
+Port of ``_greedy_descent``, ``_beam_search_l0``, ``make_hnsw_search``,
+``hnsw_search_batch``, ``_l2_coarse_seeds``, ``_l2_search_all`` and
+``hnsw_descend_entries`` in
 ``image_search_engine_for_historical_research_tpu/ops/graph_search.py``
-(:37-61, :410-438). It gives the level-0 entry point of each query when an
-index has no coarse level to seed from. The JAX package's lockstep level-0
-traversal ``hnsw_search_batch`` is not ported yet; level 0 runs in the beam
-search kernel (``ops.beam_search``).
+(:37-234, :410-438). The JAX package ``vmap``s a per-query ``while_loop``;
+here the batch dimension is written out and the loop runs while any query has
+work. A query whose loop has ended keeps its state, as the ``vmap`` masks it,
+so every query follows exactly its own per-query trajectory. Sorts are stable
+wherever the JAX package uses ``jnp.argsort`` (stable): the order of ids in
+the beam, ``INF`` slots included, depends on it.
+
+Distances are squared L2 in f32; scores are their negation. The PQ walks
+(:237-405) are not ported yet. The at-scale level-0 search is the CUDA
+kernel (``ops.beam_search``); this traversal is the JAX package's default
+route, ``HNSWIndex.search(use_kernel=False)``.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
+from .topk import _top
+
 INF = float("inf")
+
+
+def _l2_dist_factory(vectors: torch.Tensor) -> Callable:
+    """``queries (Q, D) -> dist_to``: ``dist_to(ids (Q, m)) -> (Q, m)``
+    squared L2 in f32, ``INF`` where ``id < 0``."""
+
+    def factory(queries):
+        q = queries.float()
+
+        def dist_to(ids):
+            v = vectors[ids.clamp(min=0).long()].float()      # (Q, m, D)
+            d = ((v - q[:, None, :]) ** 2).sum(-1)
+            return torch.where(ids >= 0, d, INF)
+
+        return dist_to
+
+    return factory
+
+
+def _greedy_descent(dist_to, nbrs, point, pd):
+    """Greedy best-neighbour descent on one level, batched: each query moves
+    to its best neighbour (first index among equals) while that is strictly
+    closer. A query that stops improving keeps its point, so running until no
+    query improves gives each query's own while-loop result."""
+    while True:
+        cand = nbrs[point]                                    # (Q, m)
+        bd, best = dist_to(cand).min(dim=1)
+        take = bd < pd
+        if not bool(take.any()):
+            return point, pd
+        point = torch.where(take, cand.gather(1, best[:, None])[:, 0].long(), point)
+        pd = torch.where(take, bd, pd)
+
+
+def _descend(dist_to, nbru, entry, Q, dev):
+    """``(point, distance)`` per query after the greedy descent from
+    ``entry`` through levels L-1..0 of ``nbru``."""
+    point = torch.full((Q,), int(entry), dtype=torch.long, device=dev)
+    pd = dist_to(point[:, None])[:, 0]
+    for level in range(nbru.shape[0] - 1, -1, -1):
+        point, pd = _greedy_descent(dist_to, nbru[level], point, pd)
+    return point, pd
+
+
+def _beam_search_l0(dist_to, nbr0, entries, entry_ds, N, ef, max_steps):
+    """ef-bounded best-first search on level 0 for a batch of queries.
+
+    ``entries (Q, S)`` seed each beam with several entry points (-1 for a
+    masked duplicate); ``entry_ds (Q, S)`` are their distances. Returns the
+    beams ``(ids (Q, ef), distances (Q, ef))`` in ascending distance."""
+    Q, S = entries.shape
+    m0 = nbr0.shape[1]
+    dev = entries.device
+    rows = torch.arange(Q, device=dev)
+
+    beam_ids = torch.full((Q, ef), -1, dtype=torch.long, device=dev)
+    beam_ids[:, :S] = entries
+    beam_d = torch.full((Q, ef), INF, dtype=torch.float32, device=dev)
+    beam_d[:, :S] = entry_ds
+    expanded = torch.zeros((Q, ef), dtype=torch.bool, device=dev)
+    # a -1 entry redirects to the query's first entry, a real node
+    safe_entries = torch.where(entries >= 0, entries, entries[:, :1])
+    visited = torch.zeros((Q, N), dtype=torch.bool, device=dev)
+    visited[rows[:, None].expand_as(safe_entries), safe_entries] = True
+    steps = torch.zeros(Q, dtype=torch.long, device=dev)
+    no_exp = torch.zeros((Q, m0), dtype=torch.bool, device=dev)
+
+    while True:
+        valid = beam_ids >= 0
+        frontier = ~expanded & valid
+        worst = torch.where(valid, beam_d, -INF).amax(dim=1, keepdim=True)
+        active = (steps < max_steps) & (frontier & (beam_d <= worst)).any(dim=1)
+        if not bool(active.any()):
+            return beam_ids, beam_d
+
+        i = torch.where(frontier, beam_d, INF).argmin(dim=1)
+        exp_i = expanded.clone()
+        exp_i[rows, i] = True
+        node = beam_ids[rows, i].clamp(min=0)
+        cand = nbr0[node].long()                              # (Q, m0)
+        safe = cand.clamp(min=0)
+        # fresh is read before this hop's marks: an id twice in the row is
+        # fresh twice, as in the JAX gather-then-scatter
+        fresh = (cand >= 0) & ~visited.gather(1, safe)
+        mark = fresh & active[:, None]
+        visited[rows[:, None].expand_as(safe)[mark], safe[mark]] = True
+        d = torch.where(fresh, dist_to(cand), INF)
+
+        all_ids = torch.cat([beam_ids, cand], 1)
+        all_d = torch.cat([beam_d, d], 1)
+        all_exp = torch.cat([exp_i, no_exp], 1)
+        order = torch.argsort(all_d, dim=1, stable=True)[:, :ef]
+        keep = active[:, None]
+        beam_ids = torch.where(keep, all_ids.gather(1, order), beam_ids)
+        beam_d = torch.where(keep, all_d.gather(1, order), beam_d)
+        expanded = torch.where(keep, all_exp.gather(1, order), expanded)
+        steps = steps + active.long()
+
+
+def make_hnsw_search(node_dist_factory: Callable):
+    """A batched HNSW search given a distance factory:
+    ``node_dist_factory(ctx) -> dist_to``, where ``ctx`` holds one row per
+    query (the raw queries for L2) and ``dist_to(ids (Q, m)) -> (Q, m)``."""
+
+    def search_all(ctx, nbr0, nbru, entry, k, ef, max_steps, N, seeds=None):
+        dist_to = node_dist_factory(ctx)
+        dev = nbr0.device
+        point, pd = _descend(dist_to, nbru, entry, ctx.shape[0], dev)
+
+        if seeds is None:
+            entries, entry_ds = point[:, None], pd[:, None]
+        else:
+            entries = torch.cat([point[:, None], seeds.long()], 1)
+            # mask duplicate entries (the descent point is often a seed too):
+            # an id twice would take two beam slots and come back twice
+            S = entries.shape[1]
+            earlier = torch.ones(S, S, dtype=torch.bool, device=dev).tril(-1)
+            dup = ((entries[:, :, None] == entries[:, None, :]) & earlier).any(2)
+            entries = torch.where(dup, -1, entries)
+            entry_ds = torch.where(dup, INF, dist_to(entries))
+        beam_ids, beam_d = _beam_search_l0(dist_to, nbr0, entries, entry_ds, N, ef, max_steps)
+        return beam_ids[:, :k].to(torch.int32), -beam_d[:, :k]
+
+    return search_all
+
+
+def hnsw_search_batch(
+    vectors: torch.Tensor,
+    nbr0: torch.Tensor,
+    nbru: torch.Tensor,
+    entry: int,
+    queries: torch.Tensor,
+    k: int,
+    ef: int,
+    max_steps: int = 0,
+    coarse_ids: Optional[torch.Tensor] = None,
+    n_seeds: int = 4,
+):
+    """Raw-vector (squared-L2) batched HNSW search; returns
+    ``(scores (Q, k), ids (Q, k) int32)``. With ``coarse_ids`` (the ids of
+    upper-level members) the best ``n_seeds`` coarse nodes by L2 seed each
+    beam beside the greedy-descent entry."""
+    N = vectors.shape[0]
+    ef = max(ef, k)
+    max_steps = max_steps or 4 * ef
+    seeds_all = None
+    if coarse_ids is not None and coarse_ids.shape[0] > 0:
+        n_seeds = min(n_seeds, coarse_ids.shape[0])
+        seeds_all = _l2_coarse_seeds(queries, vectors, coarse_ids, n_seeds)
+    ids, scores = _l2_search_all(queries, vectors, nbr0, nbru, seeds_all, entry=int(entry),
+                                 k=k, ef=ef, max_steps=max_steps, N=N)
+    return scores, ids
+
+
+def _l2_coarse_seeds(queries, vectors, coarse_ids, n_seeds):
+    """The ``n_seeds`` coarse nodes nearest each query by squared L2
+    (``||c||^2 - 2 q.c``; inner-product ranking agrees only on normalized
+    galleries)."""
+    cvecs = vectors[coarse_ids.long()].float()
+    d = (cvecs * cvecs).sum(-1)[None, :] - 2.0 * (queries.float() @ cvecs.T)
+    _, top = _top(-d, n_seeds)
+    return coarse_ids[top]
+
+
+def _l2_search_all(queries, vectors, nbr0, nbru, seeds_all, *, entry, k, ef, max_steps, N):
+    search_all = make_hnsw_search(_l2_dist_factory(vectors))
+    return search_all(queries, nbr0, nbru, entry, k, ef, max_steps, N, seeds_all)
 
 
 def hnsw_descend_entries(
@@ -22,31 +203,8 @@ def hnsw_descend_entries(
     queries: torch.Tensor,   # (Q, D)
 ) -> torch.Tensor:
     """Greedy best-neighbour descent from ``entry`` through levels L-1..0 of
-    ``nbru``; returns the (Q,) int32 level-0 entry points.
-
-    Batched over queries: each query moves to its best neighbour while that is
-    strictly closer (squared L2), exactly as the per-query JAX while-loop; a
-    query that stops improving keeps its point, so running the batch until no
-    query improves gives the same points."""
-    q = queries.float()
-    Q = q.shape[0]
-
-    def dist_to(ids: torch.Tensor) -> torch.Tensor:   # ids (Q, m)
-        v = vectors[ids.clamp(min=0).long()].float()   # (Q, m, D)
-        d = ((v - q[:, None, :]) ** 2).sum(-1)
-        return torch.where(ids >= 0, d, torch.full_like(d, INF))
-
-    point = torch.full((Q,), int(entry), dtype=torch.long, device=q.device)
-    pd = dist_to(point[:, None])[:, 0]
-    for level in range(nbru.shape[0] - 1, -1, -1):
-        nbrs = nbru[level]
-        while True:
-            cand = nbrs[point].long()                   # (Q, m)
-            d = dist_to(cand)
-            bd, best = d.min(dim=1)
-            take = bd < pd
-            if not bool(take.any()):
-                break
-            point = torch.where(take, cand.gather(1, best[:, None])[:, 0], point)
-            pd = torch.where(take, bd, pd)
+    ``nbru``; returns the (Q,) int32 level-0 entry points (the kernel's
+    starts when an index has no coarse level to seed from)."""
+    dist_to = _l2_dist_factory(vectors)(queries)
+    point, _ = _descend(dist_to, nbru, entry, queries.shape[0], queries.device)
     return point.to(torch.int32)

@@ -1,0 +1,206 @@
+"""The offline, online (L2) and benchmark CLIs of the port against the JAX
+package's: the same JPEGs and checkpoint, the same feature stores and index
+artifacts read by both packages, the same ids and the same revisited mAP."""
+
+import os
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from image_search_engine_for_historical_research_tpu.cli import offline as j_offline
+from image_search_engine_for_historical_research_tpu.cli import online as j_online
+from image_search_engine_for_historical_research_tpu.data import (
+    load_path_features as j_load_features,
+)
+from image_search_engine_for_historical_research_tpu.evaluation import (
+    compute_map_revisited as j_compute_map_revisited,
+)
+from image_search_engine_for_historical_research_tpu.index import load_index as j_load_index
+from image_search_engine_for_historical_research_tpu.index.matchers import (
+    matching_L2 as j_matching_L2,
+)
+from image_search_engine_for_historical_research_tpu.models import init_network as j_init
+from image_search_engine_for_historical_research_tpu.rerank import (
+    feature_enhancement as j_feature_enhancement,
+)
+from image_search_engine_for_historical_research_tpu_torch.cli import benchmark as t_benchmark
+from image_search_engine_for_historical_research_tpu_torch.cli import offline as t_offline
+from image_search_engine_for_historical_research_tpu_torch.cli import online as t_online
+from image_search_engine_for_historical_research_tpu_torch.data import (
+    load_path_features,
+    save_path_feature,
+)
+from image_search_engine_for_historical_research_tpu_torch.index import HNSWIndex, load_index
+from image_search_engine_for_historical_research_tpu_torch.models import from_flax_variables
+from torch_port_helpers import (  # noqa: F401  (one_torch_thread is a fixture)
+    ONE_BLOCK,
+    one_block_arch,
+    one_torch_thread,
+    perturbed_variables,
+    write_images,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+K = 4
+
+
+@pytest.fixture(scope="module")
+def collection(tmp_path_factory):
+    """Ten JPEGs under ``<data>/coll``, a one-block checkpoint, the JAX
+    offline CLI's feature store (``jax_out``) and a synthetic store."""
+    root = tmp_path_factory.mktemp("port_cli")
+    data = root / "data"
+    with one_block_arch():
+        jmodel = j_init({"architecture": ONE_BLOCK})
+        variables = perturbed_variables(jax.tree.map(np.asarray, jmodel.params), seed=5)
+        ckpt = root / "net.pth"
+        torch.save({"state_dict": from_flax_variables(variables),
+                    "meta": {"architecture": ONE_BLOCK}}, ckpt)
+        paths = write_images(data / "coll", 10, seed=1)
+        common = ["--data-root", str(data), "--image-size", "96", "--network-path", str(ckpt),
+                  "--arch", ONE_BLOCK, "--batch-size", "4"]
+        assert j_offline.main(["--datasets", "coll", "--outputs", str(root / "jax_out"),
+                               "--matching-method", "L2"] + common) == 0
+        yield root, data, paths, common
+
+
+def _offline(root, common, *extra):
+    return t_offline.main(["--outputs", str(root / "out"), "--device", "cpu"] + common
+                          + list(extra))
+
+
+def test_offline_l2_extracts_the_jax_store(collection):
+    root, data, paths, common = collection
+    with one_block_arch():
+        assert _offline(root, common, "--datasets", "coll", "--matching-method", "L2") == 0
+    vt, pt = load_path_features("coll", root=str(root / "out"))
+    vj, pj = j_load_features("coll", root=str(root / "out"))      # the JAX package reads it
+    np.testing.assert_array_equal(vt, vj)
+    assert pt == pj == [os.path.relpath(p, data) for p in paths]
+    ref, ref_paths = j_load_features("coll", root=str(root / "jax_out"))
+    assert ref_paths == pt
+    np.testing.assert_allclose(vt, ref, rtol=0, atol=1e-4)
+
+
+def test_offline_hnsw_from_stored_features(collection, capsys):
+    """``--ifextracted`` over two stores, ``--ifgenerate`` writes the HNSW
+    artifact, which the JAX package loads and searches; without
+    ``--ifgenerate`` the artifact is reused."""
+    root, data, _, common = collection
+    out = root / "out"
+    if not (out / "features" / "coll_path_feature.npz").exists():
+        with one_block_arch():
+            _offline(root, common, "--datasets", "coll", "--matching-method", "L2")
+    rng = np.random.default_rng(2)
+    synth = rng.standard_normal((150, 2048)).astype(np.float32)
+    save_path_feature("synth", synth, [f"synth/{i}" for i in range(150)], root=str(out))
+    args = ["--datasets", "coll,synth", "--ifextracted", "--matching-method", "HNSW"]
+    assert _offline(root, common, *args, "--ifgenerate") == 0
+    assert "probe query time" in capsys.readouterr().out
+    art = out / "coll_synth" / "hnsw"
+    tix = load_index(str(art), device="cpu")
+    assert isinstance(tix, HNSWIndex) and tix.n == 160
+    jix = j_load_index(str(art))
+    np.testing.assert_array_equal(np.asarray(jix.nbr0), tix.nbr0.numpy())
+    vecs = np.concatenate([load_path_features("coll", root=str(out))[0], synth])
+    _, ids = jix.search(jnp.asarray(vecs[:5]), 3)
+    np.testing.assert_array_equal(np.asarray(ids)[:, 0], np.arange(5))
+    mtime = os.path.getmtime(art / "arrays.npz")
+    assert _offline(root, common, *args) == 0                  # loads, does not rebuild
+    assert os.path.getmtime(art / "arrays.npz") == mtime
+
+
+def test_online_l2_matches_jax_service(collection):
+    root, data, paths, common = collection
+    argv = ["--datasets", "coll", "--outputs", str(root / "jax_out"), "--matching-method", "L2",
+            "--K", str(K)] + common
+    with one_block_arch():
+        jsvc = j_online.make_service(j_online.build_parser().parse_args(argv))
+        tsvc = t_online.make_service(t_online.build_parser().parse_args(argv + ["--device", "cpu"]))
+        try:
+            assert type(tsvc.index).__name__ == "FlatIndex"
+            for p in paths[:3]:
+                jr, _ = jsvc.query_image(p)
+                tr, _ = tsvc.query_image(p)
+                assert [r["id"] for r in tr] == [r["id"] for r in jr], p
+            assert [r["id"] for r in tsvc.query_image(paths[4])[0]][0] == 4
+        finally:
+            tsvc.close()
+
+
+def _revisited(root, n=80, nq=6, d=32, seed=3):
+    """A synthetic ``roxford5k``: clustered stored features and a gnd pickle
+    whose easy / hard / junk sets are disjoint."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((nq, d)).astype(np.float32)
+    label = rng.integers(0, nq, n)
+    db = centers[label] + 0.6 * rng.standard_normal((n, d)).astype(np.float32)
+    q = centers + 0.3 * rng.standard_normal((nq, d)).astype(np.float32)
+    gnd = []
+    for i in range(nq):
+        members = np.where(label == i)[0]
+        sim = db[members] @ q[i]
+        order = members[np.argsort(-sim)]
+        third = max(1, len(order) // 3)
+        gnd.append({"easy": order[:third], "hard": order[third:2 * third],
+                    "junk": order[2 * third:], "bbx": [0, 0, 10, 10]})
+    ddir = root / "rdata" / "roxford5k"
+    ddir.mkdir(parents=True)
+    with open(ddir / "gnd_roxford5k.pkl", "wb") as f:
+        pickle.dump({"imlist": [f"db{i}" for i in range(n)],
+                     "qimlist": [f"q{i}" for i in range(nq)], "gnd": gnd}, f)
+    out = str(root / "rout")
+    save_path_feature("roxford5k", db, [f"db{i}" for i in range(n)], root=out)
+    save_path_feature("roxford5k_queries", q, [f"q{i}" for i in range(nq)], root=out)
+    return db, q, gnd, ["--datasets", "roxford5k", "--data-root", str(root / "rdata"),
+                        "--outputs", out, "--ifextracted", "--device", "cpu"]
+
+
+def _assert_same_map(res, ref):
+    for key in ("mapE", "mapM", "mapH"):
+        assert getattr(res, key) == getattr(ref, key), key
+    for key in ("mprE", "mprM", "mprH"):
+        np.testing.assert_array_equal(getattr(res, key), getattr(ref, key))
+
+
+def test_benchmark_map_matches_jax(tmp_path, monkeypatch):
+    db, q, gnd, argv = _revisited(tmp_path)
+    out = t_benchmark.run(t_benchmark.build_parser().parse_args(
+        argv + ["--matching-method", "L2"]))["roxford5k"]
+    ranks_j, _ = j_matching_L2(len(db), db, q)
+    np.testing.assert_array_equal(out["ranks"], ranks_j)
+    ref = j_compute_map_revisited(ranks_j, gnd, "roxford5k")
+    _assert_same_map(out["map"], ref)
+    assert 0.3 < ref.mapE <= 1.0 + 1e-9
+
+    # alphaQE, as it runs on a gallery of at least QGE_BIG images
+    monkeypatch.setattr(t_benchmark, "QGE_BIG", 10)
+    out = t_benchmark.run(t_benchmark.build_parser().parse_args(
+        argv + ["--matching-method", "L2", "--qge"]))["roxford5k"]
+    _, ranks_qe = j_feature_enhancement(jnp.asarray(q), jnp.asarray(db),
+                                        jnp.asarray(ranks_j), k=3, iterations=1)
+    np.testing.assert_array_equal(out["ranks_qe"], np.asarray(ranks_qe))
+    _assert_same_map(out["map_qe"], j_compute_map_revisited(np.asarray(ranks_qe), gnd,
+                                                            "roxford5k"))
+
+
+def test_benchmark_qge_on_small_gallery_exits_before_extraction(tmp_path, monkeypatch):
+    _, _, _, argv = _revisited(tmp_path)
+    argv = [a for a in argv if a != "--ifextracted"]
+    monkeypatch.setattr(t_benchmark, "extract_vectors", None)   # must not be reached
+    with pytest.raises(SystemExit, match="diffusion"):
+        t_benchmark.main(argv + ["--qge"])
+
+
+@pytest.mark.parametrize("cli", ["offline", "benchmark"])
+def test_unported_matching_method_exits_at_start(cli, tmp_path):
+    argv = ["--datasets", "coll", "--data-root", str(tmp_path), "--device", "cpu",
+            "--matching-method", "IVFPQ"]
+    main = t_offline.main if cli == "offline" else t_benchmark.main
+    with pytest.raises(SystemExit, match="PQ family"):
+        main(argv)

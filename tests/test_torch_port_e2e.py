@@ -133,7 +133,7 @@ def test_wsgi_post_returns_same_ids(services):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--matching-method", "L2"], "FlatIndex"),
+    (["--matching-method", "ANNOY"], "remaining matchers"),
     (["--matching-method", "IVFPQ"], "PQ family"),
 ])
 def test_unported_matching_methods_exit(services, extra, match):

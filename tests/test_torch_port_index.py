@@ -8,6 +8,12 @@ import torch
 from image_search_engine_for_historical_research_tpu.index import build_hnsw as j_build
 from image_search_engine_for_historical_research_tpu.index import load_index as j_load
 from image_search_engine_for_historical_research_tpu.index import save_index as j_save
+from image_search_engine_for_historical_research_tpu.index.base import (
+    normalize_rows as j_normalize_rows,
+)
+from image_search_engine_for_historical_research_tpu.ops.graph_search import (
+    hnsw_search_batch as j_search_batch,
+)
 from image_search_engine_for_historical_research_tpu_torch.index import (
     HNSWIndex,
     build_hnsw,
@@ -54,8 +60,15 @@ def test_port_artifact_loads_in_jax(vecs, tmp_path):
 
 def test_port_index_surface(vecs):
     tix = build_hnsw(vecs, m=8, ef_construction=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_kernel=False"):
-        tix.search(vecs[:2], 5, use_kernel=False)
+    # use_kernel=False is the lockstep traversal, the JAX default route
+    q = tix.vectors[:4].numpy() + 0.01
+    sj, ij = j_search_batch(jnp.asarray(tix.vectors.numpy()), jnp.asarray(tix.nbr0.numpy()),
+                            jnp.asarray(tix.nbru.numpy()), tix.entry,
+                            j_normalize_rows(jnp.asarray(q)), 5, 32,
+                            coarse_ids=jnp.asarray(tix.coarse_ids.numpy()))
+    st, it = tix.search(q, 5, ef=32, use_kernel=False)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=0, atol=1e-5)
     # without coarse ids the entry points come from the greedy descent
     no_coarse = HNSWIndex(tix.vectors, tix.nbr0, tix.nbru, tix.entry, tix.ef_default)
     s, i = no_coarse.search(torch.from_numpy(vecs[:3]), 5)

@@ -17,8 +17,8 @@ JAX_PKG = "image_search_engine_for_historical_research_tpu"
 _CPU_PATH = f"""
 import sys
 import numpy as np, torch
-from {PKG}.cli import online
-from {PKG}.index import build_hnsw
+from {PKG}.cli import benchmark, offline, online
+from {PKG}.index import build_flat, build_hnsw, build_hnsw_device
 from {PKG}.models import init_network, multiscale_descriptor
 from {PKG}.serving import SearchService
 
@@ -29,6 +29,9 @@ with torch.inference_mode():
 ix = build_hnsw(np.random.default_rng(0).standard_normal((50, 2048)), m=4,
                 ef_construction=16, device="cpu")
 _, ids = ix.search(v, 3)
+assert ids.shape == (1, 3)
+flat = build_flat(np.random.default_rng(1).standard_normal((50, 2048)), device="cpu")
+_, ids = flat.search(v, 3)
 assert ids.shape == (1, 3)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "{JAX_PKG}"]
@@ -76,9 +79,16 @@ def test_port_sources_import_no_jax():
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
-    from image_search_engine_for_historical_research_tpu_torch.cli import common, online
+    from image_search_engine_for_historical_research_tpu_torch.cli import (
+        benchmark,
+        common,
+        offline,
+        online,
+    )
     from image_search_engine_for_historical_research_tpu_torch.index import (
+        build_flat,
         build_hnsw,
+        build_hnsw_device,
         load_index,
     )
     from image_search_engine_for_historical_research_tpu_torch.models import init_network
@@ -89,8 +99,12 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         init_network()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         common.load_network()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_hnsw(np.ones((4, 8), np.float32))
+    for build in (build_hnsw, build_hnsw_device, build_flat):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(np.ones((4, 8), np.float32))
+    for cli in (offline.main, benchmark.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli(["--datasets", "db", "--data-root", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_index(str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -33,6 +33,19 @@ def one_block_arch():
         yield
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a module runs. Its tests run many small
+    ops, and a test run with several workers on few cores would otherwise
+    oversubscribe the CPU with each worker's own thread pool."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def perturbed_variables(variables, seed: int = 0):
     """Numpy copy of a Flax variable tree with every parameter and BN
     statistic moved by seeded noise: without it the SOA ``v`` conv is zero,
