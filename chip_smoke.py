@@ -26,7 +26,25 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    (``FlatIndex``, with the flat scan's time and byte bound); recall@10 >=
    0.95 through the kernel route and the lockstep route (``use_kernel=False``);
    the kernel against its plain version on that graph (same id sets), timed.
-4. The main path through the entry points a user calls: 16 synthetic JPEGs
+   Then diffusion beyond the reference regime on those 1M bf16 rows:
+   ``build_diffusion_offline(kd=50, batch=1024, allow_large=True,
+   memory_budget_bytes=3 GiB, host_out=False, score_dtype=float16)`` (T=512,
+   the recompute solver) with the kNN-graph and sweep seconds and the peak
+   memory; 64 sampled rows solved again by the tables solver over the same
+   kNN graph (at least 61 within 1e-3 of the row's largest score); the
+   online pass for 70 queries, timed.
+4. The global re-rankers at rParis6k's shape: 6,322 x 2048 clustered unit
+   rows (11 landmarks among 200 other clusters) and 70 queries, f32, made on
+   the card, with a revisited gnd. alphaQE (k=10, 3 iterations) then
+   ``diffusion_rerank(n_trunc=2000, kd=200)`` (tables solver; build seconds,
+   online ms); AQE, DBA and ``kr_rerank`` (dense, 6,392 rows): each held
+   against a CPU run on the same inputs (diffusion's CPU run solves the
+   rows the online pass reads), top-100 ranks equal but at ties (ids that
+   differ score within 1e-5 of each other, relative, by the CPU's scores);
+   ``kr_rerank_chunked`` against the dense path on the card, the same way.
+   Then ``kr_rerank`` at 100,000 gallery rows + 70 queries (the chunked path:
+   seconds, peak memory, whether the full-width re-run fired).
+5. The main path through the entry points a user calls: 16 synthetic JPEGs
    through ``cli.offline --matching-method L2`` (ResNet101-SOLAR at full
    width, seeded, perturbed weights carried in as Flax-layout numpy arrays
    through ``from_flax_variables`` and saved as a SOLAR checkpoint; 1024 px,
@@ -40,16 +58,31 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    One query on a CPU-built service must give the card's ids. Then an
    ``--matching-method L2`` service on the card, whose rank 0 must equal the
    HNSW service's for the 4 POSTs, and a CPU-built L2 service with the card's
-   L2 ids for one query.
-5. Kernel and plain times at the served shapes (Q=1 and Q=32, ids equal in
+   L2 ids for one query. Then ``SearchService(rerank="diffusion")`` over the
+   HNSW gallery with a card-built artifact (n_trunc=2000, kd=50): 4 POSTs, 4
+   ``query_image``, one ``query_batch`` of 4 (the batch's ids equal the
+   singles', one kernel launch a search), a CPU-built diffusion service and
+   the same artifact loaded on the host give the card's ids. Then 16 POSTs
+   from 8 threads through ``CoalescingService(max_batch=8)``: each request's
+   ids equal ``query_image``'s, fewer batches than requests, one launch a
+   batch.
+6. The CLIs on stored features: phase 4's rows and gnd as a ``rparis6k``
+   feature store and gnd pickle; ``cli.benchmark --ifextracted --qge``
+   (alphaQE + diffusion), ``cli.test_reranking --methods
+   qge,aqe,dba,kr,diffusion``; ``cli.test_custom --save-ranks --html-sheet``
+   and ``cli.retrieve --mode custom`` on the 16 JPEGs in label folders.
+7. Kernel and plain times at the served shapes (Q=1 and Q=32, ids equal in
    order), and the phase-clock split at Q=1.
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
 before it (``ms``), and the same with a spin kernel queued ahead of the first
 event, so the host's launch gaps are hidden (``device_ms``).
 
-Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises,
+Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
+run: the HNSW and diffusion services and the coalesced batches), a
+``{"rerank": {...}}`` line with the re-ranking phases' numbers, then the
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
 CUDA device.
 """
@@ -62,6 +95,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -382,9 +416,10 @@ def graph_phase(bs, dev, flush, card):
                recall10_lockstep=r_l, build_s=build_s,
                fresh_rows_per_hop=rec["fresh_rows_per_query"] / rec["expansions_per_query"])
     print("beam_search on the device-built 1M graph:", json.dumps(rec), f"({card})", flush=True)
+    vectors = ix.vectors
     del ix, flat, q, exact
     torch.cuda.empty_cache()
-    return rec
+    return rec, vectors
 
 
 def write_images(directory, n, rng):
@@ -446,6 +481,479 @@ def post(app, path):
     return json.loads(body)
 
 
+def compare_ranks(ref, got, scores, rtol, label, descending=True):
+    """``got`` against the reference ranks ``ref`` (Q, k): where they differ
+    at a rank, the id ``got`` put there must score within ``rtol`` (relative)
+    of the reference id, by the reference's own ``scores`` (Q, N), i.e. the
+    two ids tie at the tolerance. Returns (ranks that differ, largest
+    relative gap among them)."""
+    ref, got, scores = (torch.as_tensor(x).cpu() for x in (ref, got, scores))
+    s_ref, s_got = scores.gather(1, ref.long()), scores.gather(1, got.long())
+    moved = ref != got
+    gap = ((s_ref - s_got).abs() / s_ref.abs().clamp(min=1e-30))[moved]
+    worst = float(gap.max()) if gap.numel() else 0.0
+    check(worst <= rtol, f"{label}: ranks differ beyond ties (relative gap {worst} > {rtol})")
+    return int(moved.sum()), worst
+
+
+def revisited_like(dev, n=6322, nq=70, n_land=11, n_other=200, d_eff=64, seed=11):
+    """rParis6k's shape: ``n`` x 2048 clustered unit rows (``n_land``
+    landmarks among ``n_other`` other clusters, in a ``d_eff``-dimensional
+    subspace plus a little full-rank noise) and ``nq`` queries of the
+    landmarks, f32, made on the card; and a revisited gnd (each query's
+    landmark rows by similarity: first third easy, second hard, rest junk)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = unit_rows(torch.randn(n_land + n_other, d_eff, generator=g, device=dev))
+    u = torch.randn(d_eff, D, generator=g, device=dev) / D ** 0.5
+    label = torch.randint(0, n_land + n_other, (n,), generator=g, device=dev)
+    qlabel = torch.arange(nq, device=dev) % n_land
+
+    def embed(lab):
+        z = centers[lab] + 0.18 * torch.randn(lab.shape[0], d_eff, generator=g, device=dev)
+        return unit_rows(z @ u + 0.005 * torch.randn(lab.shape[0], D, generator=g, device=dev))
+
+    vecs, qvecs = embed(label), embed(qlabel)
+    sims = (qvecs @ vecs.T).cpu().numpy()
+    label_h, gnd = label.cpu().numpy(), []
+    for i, lab in enumerate(qlabel.tolist()):
+        members = np.where(label_h == lab)[0]
+        order = members[np.argsort(-sims[i, members], kind="stable")]
+        third = max(1, len(order) // 3)
+        gnd.append({"easy": order[:third], "hard": order[third:2 * third],
+                    "junk": order[2 * third:], "bbx": [0, 0, 10, 10]})
+    return vecs.contiguous(), qvecs.contiguous(), gnd
+
+
+def rerank_phase(dev, flush, card):
+    """The global re-rankers at rParis6k's shape, card against CPU: alphaQE
+    (k=10, 3 iterations) then diffusion (n_trunc=2000, kd=200, the tables
+    solver), AQE, DBA, k-reciprocal dense and chunked."""
+    from image_search_engine_for_historical_research_tpu_torch import rerank
+    from image_search_engine_for_historical_research_tpu_torch.ops.normalization import l2n
+    from image_search_engine_for_historical_research_tpu_torch.ops.topk import (
+        exact_ranks,
+        exact_scores,
+        exact_topk,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.rerank import diffusion as dif
+
+    vecs, qvecs, gnd = revisited_like(dev)
+    vc, qc = vecs.cpu(), qvecs.cpu()
+    n, T, kd = vecs.shape[0], 2000, 200
+    out = {"n": n, "nq": qvecs.shape[0], "gnd": gnd, "vecs": vecs, "qvecs": qvecs}
+
+    # alphaQE from the exact ranks, on the card and on the CPU
+    qe, r_qe = rerank.feature_enhancement(qvecs, vecs, exact_ranks(qvecs, vecs), k=10,
+                                          iterations=3)
+    qe_c, r_qe_c = rerank.feature_enhancement(qc, vc, exact_ranks(qc, vc), k=10, iterations=3)
+    moved, gap = compare_ranks(r_qe_c[:, :100], r_qe[:, :100], exact_scores(qe_c, vc),
+                               1e-5, "alphaQE card vs CPU")
+    print(f"alphaQE k=10 x3 at {n} x {D}: top-100 card vs CPU, {moved} ranks moved "
+          f"(largest relative gap {gap}); max |qe card - qe CPU| "
+          f"{float((qe.cpu() - qe_c).abs().max())}", flush=True)
+
+    # diffusion: the offline build and the online pass on the card
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = dif.build_diffusion_offline(vecs, n_trunc=T, kd=kd, stats=st)
+    build_s = time.perf_counter() - t0
+    check(st["solver"] == "tables" and st["T"] == T, f"6k diffusion build {st}")
+    online = lambda: dif.diffusion_rerank(vecs, qe, offline=off, n_trunc=T)[0]  # noqa: E731
+    online_ms = time_ms(online, 10, flush)
+    r_dfs = online()
+    # the CPU run of the same pass on the rows it reads (the card's enhanced
+    # queries as input, so only diffusion differs). (a) Over the card's kNN
+    # graph and supports: the CG solves, the scatter-add and the top-k on the
+    # CPU. (b) Over the CPU's own kNN graph: f32 products on the two devices
+    # differ in the last bits and so pick a different kd-th neighbour on a
+    # few rows, which moves those rows' scores; reported, and held by the
+    # overlap of the top 100.
+    qe_h = qe.cpu()
+    seeds = torch.unique(exact_topk(qe_h, vc, 3)[1])
+    ids_k = off.trunc_ids[seeds.to(dev)].long().cpu()
+    sc_k = off.scores[seeds.to(dev)].cpu()
+    sims_k, knn_k = dif._knn_graph(vecs, kd)                 # the build's graph
+    nbr_k, val_k = (t.cpu() for t in dif._laplacian_from_knn(sims_k, knn_k))
+
+    def cpu_artifact(ids, sc):
+        art = dif.DiffusionOffline(torch.zeros((n, T), dtype=torch.int32),
+                                   torch.zeros((n, T), dtype=torch.float32))
+        art.trunc_ids[seeds], art.scores[seeds] = ids.int(), sc
+        return art
+
+    def rel(a, b):
+        return float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+
+    sc_a = dif._batched_trunc_cg(nbr_k, val_k, ids_k)
+    sc_err = rel(sc_k, sc_a)
+    check(sc_err <= 1e-6, f"6k diffusion: card vs CPU solves over one graph differ by {sc_err}")
+    art_a = cpu_artifact(ids_k, sc_a)
+    dense_a = dif.diffusion_online_scores(art_a.trunc_ids, art_a.scores, vc, qe_h)
+    dense = dif.diffusion_online_scores(off.trunc_ids, off.scores, vecs, qe).cpu()
+    dense_err = rel(dense, dense_a)
+    check(dense_err <= 1e-5, f"6k diffusion: card vs CPU online scores differ by {dense_err}")
+    moved, gap = compare_ranks(dif.diffusion_rerank(vc, qe_h, offline=art_a, n_trunc=T)[0][:, :100],
+                               r_dfs[:, :100], dense_a, 1e-5, "diffusion card vs CPU")
+
+    sims_c, knn_c = dif._knn_graph(vc, kd)
+    lap_c = dif._laplacian_from_knn(sims_c, knn_c)
+    ids_c, sc_c = dif._knn_and_solve(vc[seeds], vc, *lap_c, T)
+    row_k = torch.zeros((seeds.numel(), n)).scatter_(1, ids_k, sc_k)     # by gallery id
+    row_c = torch.zeros((seeds.numel(), n)).scatter_(1, ids_c, sc_c)
+    r_own = dif.diffusion_rerank(vc, qe_h, offline=cpu_artifact(ids_c, sc_c), n_trunc=T)[0]
+    overlap = float(np.mean([len(set(a) & set(b)) / 100 for a, b in
+                             zip(r_own[:, :100].tolist(), r_dfs[:, :100].cpu().tolist())]))
+    check(overlap >= 0.95, f"6k diffusion: top-100 overlap with the CPU's own graph {overlap}")
+    out["diffusion"] = {"build_s": build_s, "knn_s": st["knn_s"], "sweep_s": st["sweep_s"],
+                        "batches": -(-n // 256), "online_ms": online_ms,
+                        "seed_rows": int(seeds.numel()),
+                        "one_graph_solve_max_rel_err": sc_err,
+                        "one_graph_dense_max_rel_err": dense_err,
+                        "one_graph_top100_moved": moved, "one_graph_top100_max_rel_gap": gap,
+                        "knn_rows_equal_cpu": int((knn_k.cpu() == knn_c).all(1).sum()),
+                        "own_graph_seed_rows_same_support":
+                            int((ids_k.sort(1).values == ids_c.sort(1).values).all(1).sum()),
+                        "own_graph_seed_max_rel_err": rel(row_k, row_c),
+                        "own_graph_top100_overlap": overlap}
+    print(f"diffusion at {n} x {D} (alphaQE queries, n_trunc={T}, kd={kd}, tables solver): "
+          f"{json.dumps(out['diffusion'])} ({card})", flush=True)
+    del off, sims_k, knn_k, nbr_k, val_k, sims_c, lap_c
+
+    # AQE and DBA: augmented descriptors and their exact ranks, card vs CPU
+    for name, fn in (("aqe", rerank.average_query_expansion),
+                     ("dba", rerank.database_augmentation)):
+        qa, va = fn(qvecs, vecs)
+        qa_c, va_c = fn(qc, vc)
+        err = max(float((qa.cpu() - qa_c).abs().max()), float((va.cpu() - va_c).abs().max()))
+        check(err <= 1e-4, f"{name}: card vs CPU descriptors differ by {err}")
+        moved, gap = compare_ranks(exact_ranks(qa_c, va_c)[:, :100], exact_ranks(qa, va)[:, :100],
+                                   exact_scores(qa_c, va_c), 1e-5, f"{name} card vs CPU")
+        ms = time_ms(lambda: fn(qvecs, vecs), 10, flush)  # noqa: B023
+        out[name] = {"ms": ms, "max_abs_err": err, "top100_moved": moved}
+        print(f"{name} at {n} x {D}: {ms:.3f} ms, max |card - CPU| {err}, top-100 ranks moved "
+              f"{moved} ({card})", flush=True)
+
+    # k-reciprocal: dense on the card and the CPU, chunked on the card
+    final_c = rerank.kr_rerank_scores(l2n(qc), l2n(vc))
+    kr_c = torch.argsort(final_c, dim=1, stable=True)
+    kr_ms = time_ms(lambda: rerank.kr_rerank(qvecs, vecs), 3, flush)
+    kr = rerank.kr_rerank(qvecs, vecs)
+    moved, gap = compare_ranks(kr_c[:, :100], kr[:, :100], final_c, 1e-5, "kr card vs CPU")
+    final = rerank.kr_rerank_scores(l2n(qvecs), l2n(vecs))
+    t0 = time.perf_counter()
+    krc = rerank.kr_rerank_chunked(qvecs, vecs)
+    torch.cuda.synchronize()
+    krc_s = time.perf_counter() - t0
+    moved_c, gap_c = compare_ranks(kr[:, :100], krc[:, :100], final, 1e-5,
+                                   "kr chunked vs dense on the card")
+    out["kr"] = {"rows": n + qvecs.shape[0], "dense_ms": kr_ms, "chunked_s": krc_s,
+                 "top100_moved_vs_cpu": moved, "chunked_top100_moved_vs_dense": moved_c,
+                 "chunked_first_rank_differing": int((kr != krc).float().argmax(1)
+                                                     .masked_fill(~(kr != krc).any(1), n).min())}
+    print(f"kr at {n + qvecs.shape[0]} rows: {json.dumps(out['kr'])} ({card})", flush=True)
+    return out
+
+
+def kr_large_phase(dev, card, n=100_000, nq=70):
+    """k-reciprocal beyond the dense envelope: ``kr_rerank`` picks the chunked
+    path; seconds, peak memory and whether the full-width re-run fired."""
+    from image_search_engine_for_historical_research_tpu_torch.rerank import kr as kr_mod
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    vecs = clustered_rows(n, D, g, dev).float()
+    src = torch.randperm(n, generator=g, device=dev)[:nq]
+    q = unit_rows(vecs[src] + 0.02 * torch.randn(nq, D, generator=g, device=dev) / D ** 0.5)
+    runs = []
+    program = kr_mod._kr_chunked_program
+
+    def spy(*args, **kw):
+        res = program(*args, **kw)
+        runs.append({"compact_width": kw["compact_width"], "overflow": bool(res[1])})
+        return res
+
+    kr_mod._kr_chunked_program = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ranks = kr_mod.kr_rerank(q, vecs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        kr_mod._kr_chunked_program = program
+    check(tuple(ranks.shape) == (nq, n), f"kr 100k ranks shape {tuple(ranks.shape)}")
+    check(bool((torch.sort(ranks, dim=1).values == torch.arange(n, device=dev)).all()),
+          "kr 100k: a row of ranks is not a permutation")
+    hit = float((ranks[:, 0] == src).float().mean())
+    check(hit >= 0.9, f"kr 100k: rank 0 is the query's own row for only {hit}")
+    rec = {"gallery": n, "queries": nq, "dense_estimate_gib": 24 * (n + nq) ** 2 / 2 ** 30,
+           "s": secs, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "runs": runs, "overflow_rerun": len(runs) > 1, "rank0_own_row": hit}
+    print(f"kr_rerank beyond the dense envelope: {json.dumps(rec)} ({card})", flush=True)
+    del vecs, ranks
+    torch.cuda.empty_cache()
+    return rec
+
+
+def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
+    """Diffusion beyond the reference regime on the 1M bf16 rows: the
+    budgeted device artifact (T=512, recompute solver), n_check rows solved
+    again by the tables solver over the same kNN graph, the online pass."""
+    from image_search_engine_for_historical_research_tpu_torch.rerank import diffusion as dif
+
+    n = vecs.shape[0]
+    st = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    off = dif.build_diffusion_offline(vecs, kd=50, batch=1024, allow_large=True,
+                                      memory_budget_bytes=3 << 30, host_out=False,
+                                      score_dtype=np.float16, stats=st)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(st["solver"] == "recompute" and st["T"] == 512, f"1M diffusion build {st}")
+    check(tuple(off.trunc_ids.shape) == (n, 512) and off.trunc_ids.dtype == torch.int32
+          and off.scores.dtype == torch.float16, "1M diffusion artifact shape or dtype")
+    check(bool(torch.isfinite(off.scores).all()), "1M diffusion artifact is not finite")
+    self_first = float((off.trunc_ids[:, 0] == torch.arange(n, device=dev)).float().mean())
+    check(self_first >= 0.999, f"1M diffusion: a row's support starts with itself {self_first}")
+
+    sims, ids = st.pop("knn")
+    lap_nbr, lap_val = dif._laplacian_from_knn(sims, ids)
+    del sims, ids
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = torch.randperm(n, generator=g, device=dev)[:n_check]
+    x_tab = dif._batched_trunc_cg(lap_nbr, lap_val, off.trunc_ids[rows])
+    err = ((x_tab - off.scores[rows].float()).abs().amax(1)
+           / x_tab.abs().amax(1).clamp(min=1e-30)).cpu()
+    agree = int((err <= 1e-3).sum())
+    del lap_nbr, lap_val
+    check(agree >= n_check - 3, f"1M diffusion: {agree} of {n_check} rows agree with the "
+                                f"tables solver within 1e-3 (worst {float(err.max())})")
+
+    pick = torch.randperm(n, generator=g, device=dev)[:Q_BIG]
+    q = unit_rows(vecs[pick].float() + 0.02 * torch.randn(Q_BIG, D, generator=g, device=dev)
+                  / D ** 0.5).contiguous()
+    online = lambda: dif.diffusion_online_scores(off.trunc_ids, off.scores, vecs, q)  # noqa: E731
+    online_ms = time_ms(online, 5, flush)
+    dense = online()
+    check(tuple(dense.shape) == (Q_BIG, n) and bool(torch.isfinite(dense).all()),
+          "1M diffusion online scores")
+    top1 = float((dense.argmax(1) == pick).float().mean())
+    rec = {"n": n, "T": st["T"], "kd": 50, "batch": 1024, "solver": st["solver"],
+           "build_s": build_s, "knn_s": st["knn_s"], "sweep_s": st["sweep_s"],
+           "batches": -(-n // 1024), "peak_gib": peak,
+           "artifact_gb": (off.trunc_ids.numel() * 4 + off.scores.numel() * 2) / 1e9,
+           "tables_check_rows": n_check, "tables_agree_1e-3": agree,
+           "tables_worst_rel_err": float(err.max()), "online_queries": Q_BIG,
+           "online_ms": online_ms, "online_top1_own_row": top1}
+    print(f"diffusion at 1M bf16 beyond the regime: {json.dumps(rec)} ({card})", flush=True)
+    del off, dense
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cli_phase(rr, tmp, image_paths, ckpt, dev, card):
+    """The CLIs on stored features at rParis6k's shape (the re-ranking
+    phase's rows and gnd written as a feature store and a gnd pickle), and
+    ``test_custom`` / ``retrieve`` on the JPEGs in label folders."""
+    import pickle
+    import shutil
+
+    from image_search_engine_for_historical_research_tpu_torch.cli import (
+        benchmark,
+        retrieve,
+        test_custom,
+        test_reranking,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.data import save_path_feature
+    from image_search_engine_for_historical_research_tpu_torch.evaluation.ranks import (
+        load_ranked_results,
+    )
+
+    root, outputs = os.path.join(tmp, "revisited"), os.path.join(tmp, "rout")
+    imlist = [f"db{i:05d}" for i in range(rr["n"])]
+    qimlist = [f"q{i:02d}" for i in range(rr["nq"])]
+    os.makedirs(os.path.join(root, "rparis6k"))
+    with open(os.path.join(root, "rparis6k", "gnd_rparis6k.pkl"), "wb") as f:
+        pickle.dump({"imlist": imlist, "qimlist": qimlist, "gnd": rr["gnd"]}, f)
+    save_path_feature("rparis6k", rr["vecs"].cpu().numpy(), imlist, root=outputs)
+    save_path_feature("rparis6k_queries", rr["qvecs"].cpu().numpy(), qimlist, root=outputs)
+    common = ["--data-root", root, "--outputs", outputs, "--device", dev.type]
+
+    def valid(res):
+        return all(0.0 <= getattr(res, k) <= 1.0 + 1e-9 for k in ("mapE", "mapM", "mapH"))
+
+    t0 = time.perf_counter()
+    res = benchmark.run(benchmark.build_parser().parse_args(
+        ["--datasets", "rparis6k", "--ifextracted", "--qge", "--matching-method", "L2"]
+        + common))["rparis6k"]
+    bench_s = time.perf_counter() - t0
+    check(res["ranks_dfs"].shape == (rr["nq"], 2000), f"ranks_dfs {res['ranks_dfs'].shape}")
+    check(all(valid(res[k]) for k in ("map", "map_qe", "map_dfs")), "benchmark mAP out of range")
+    maps = {k: [res[k].mapE, res[k].mapM, res[k].mapH] for k in ("map", "map_qe", "map_dfs")}
+    print(f"cli.benchmark --ifextracted --qge rparis6k: {bench_s} s, mAP E/M/H {json.dumps(maps)} "
+          f"({card})", flush=True)
+
+    t0 = time.perf_counter()
+    rres = test_reranking.run(test_reranking.build_parser().parse_args(
+        ["--dataset", "rparis6k", "--methods", "qge,aqe,dba,kr,diffusion"] + common))
+    rr_s = time.perf_counter() - t0
+    check(list(rres) == ["baseline", "qge", "aqe", "dba", "kr", "diffusion"]
+          and all(valid(r) for r in rres.values()), "test_reranking results")
+    check(rres["qge"].mapE == res["map_dfs"].mapE, "test_reranking qge and benchmark --qge "
+                                                  "disagree")
+    print(f"cli.test_reranking qge,aqe,dba,kr,diffusion: {rr_s} s, mAP E/M/H "
+          f"{json.dumps({k: [r.mapE, r.mapM, r.mapH] for k, r in rres.items()})} ({card})",
+          flush=True)
+
+    custom = os.path.join(tmp, "custom")
+    for i, src in enumerate(image_paths):
+        for split in (("db", "q") if i < 4 else ("db",)):
+            d = os.path.join(custom, split, f"label{i % 4}")
+            os.makedirs(d, exist_ok=True)
+            shutil.copy(src, d)
+    args = ["--db-dir", os.path.join(custom, "db"), "--query-dir", os.path.join(custom, "q"),
+            "--K", "10", "--save-ranks", "--html-sheet", "--network-path", ckpt,
+            "--batch-size", "4", "--device", dev.type]
+    t0 = time.perf_counter()
+    cres = test_custom.run(test_custom.build_parser().parse_args(
+        args + ["--outputs", os.path.join(tmp, "cout")]))
+    custom_s = time.perf_counter() - t0
+    ranks, qp, dp = load_ranked_results(os.path.join(tmp, "cout", "ranks"))
+    own = [dp.index(p.replace(f"{os.sep}q{os.sep}", f"{os.sep}db{os.sep}")) for p in qp]
+    check(ranks.shape == (4, 10) and list(ranks[:, 0]) == own,
+          f"test_custom: rank 0 is not the query's own copy ({ranks[:, 0]}, {own})")
+    check(0.0 < cres["map"] <= 1.0 and os.path.exists(cres["saved"]["html"]),
+          f"test_custom mAP {cres['map']}")
+    t0 = time.perf_counter()
+    check(retrieve.main(["--mode", "custom"] + args + ["--outputs", os.path.join(tmp, "rtout")])
+          == 0, "cli.retrieve --mode custom failed")
+    retrieve_s = time.perf_counter() - t0
+    check(np.array_equal(load_ranked_results(os.path.join(tmp, "rtout", "ranks"))[0], ranks),
+          "cli.retrieve and cli.test_custom ranks differ")
+    print(f"cli.test_custom on 16 JPEGs in 4 label folders: mAP@10 {cres['map']}, {custom_s} s; "
+          f"cli.retrieve --mode custom: the same ranks, {retrieve_s} s ({card})", flush=True)
+    return {"benchmark_s": bench_s, "map_dfs": maps["map_dfs"], "test_reranking_s": rr_s,
+            "test_custom_s": custom_s, "retrieve_s": retrieve_s}
+
+
+def served_rerank_phase(bs, svc, make_cpu_service, gallery, paths, tmp, data_root, dev, card):
+    """Diffusion served over the HNSW service's gallery (a card-built
+    artifact; 4 POSTs, 4 ``query_image``, one ``query_batch`` of 4; a CPU
+    service and a host artifact give the same ids), then 16 POSTs from 8
+    threads through ``CoalescingService``. Returns the beam kernel's launches
+    in each of the two runs' counted parts: (diffusion, coalescing record)."""
+    from image_search_engine_for_historical_research_tpu_torch.rerank import (
+        DiffusionOffline,
+        build_diffusion_offline,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.serving import (
+        CoalescingService,
+        SearchService,
+        make_wsgi_app,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = build_diffusion_offline(torch.as_tensor(gallery, device=dev), n_trunc=2000, kd=50)
+    off_s = time.perf_counter() - t0
+    off_path = os.path.join(tmp, "diffusion_offline.npz")
+    off.save(off_path)
+    print(f"served diffusion artifact: {gallery.shape[0]} rows, n_trunc=2000, kd=50, "
+          f"build {off_s} s ({card})", flush=True)
+
+    def diffusion_service(base, artifact, device):
+        return SearchService(base.model, base.index, base.vecs, base.paths, K=10,
+                             scales=base.scales, image_size=base.image_size,
+                             rerank="diffusion", diffusion_offline=artifact,
+                             image_root=data_root, device=device)
+
+    dsvc = diffusion_service(svc, off, dev)
+    dapp = make_wsgi_app(dsvc)
+    post(dapp, paths[15])                                # warm-up, outside the count
+    bs.launches = 0
+    d_posted = [post(dapp, p) for p in paths[:4]]
+    d_singles = [dsvc.query_image(p) for p in paths[4:8]]
+    d_batch = dsvc.query_batch(paths[4:8])
+    torch.cuda.synchronize()
+    d_launches = bs.launches
+    check(d_launches == 9, f"diffusion service: beam kernel launched {d_launches} times, "
+                           "want 9")
+    check([[r["id"] for r in res] for res, _ in d_singles]
+          == [[r["id"] for r in res] for res, _ in d_batch],
+          "diffusion query_batch differs from query_image")
+    for i, out in enumerate(d_posted):
+        ids = [r["id"] for r in out["results"]]
+        t = out["timing"]
+        check(len(ids) == 10 and len(set(ids)) == 10, f"diffusion POST {i}: ids {ids}")
+        print(f"diffusion POST img{i:02d}: top-10 {ids} extract_s {t['extract_s']:.4f} "
+              f"search_s {t['search_s']:.4f} rerank_s {t['rerank_s']:.4f} ({card})")
+    t = d_batch[0][1]
+    print(f"diffusion query_batch B=4: extract_s {t['extract_s']:.4f} search_s "
+          f"{t['search_s']:.4f} rerank_s {t['rerank_s']:.4f} ({card})", flush=True)
+    d_ids = [r["id"] for r in d_posted[0]["results"]]
+    cpu_base = make_cpu_service()
+    dcpu = diffusion_service(cpu_base, DiffusionOffline.load(off_path, device="cpu"), "cpu")
+    cpu_d_ids = [r["id"] for r in dcpu.query_image(paths[0])[0]]
+    print(f"diffusion cpu ids {cpu_d_ids} gpu ids {d_ids}", flush=True)
+    check(cpu_d_ids == d_ids, "CPU and GPU diffusion services disagree")
+    dcpu.close()
+    cpu_base.close()
+    hsvc = diffusion_service(svc, DiffusionOffline.load(off_path, to_device=False), dev)
+    host_ids = [[r["id"] for r in hsvc.query_image(p)[0]] for p in paths[:4]]
+    check(host_ids == [[r["id"] for r in o["results"]] for o in d_posted],
+          "host and device diffusion artifacts disagree")
+    t_host = hsvc.query_batch(paths[4:8])
+    check([[r["id"] for r in res] for res, _ in t_host]
+          == [[r["id"] for r in res] for res, _ in d_batch],
+          "host-artifact query_batch differs")
+    print(f"host artifact: the same ids for 4 query_image and a query_batch of 4; "
+          f"batch rerank_s {t_host[0][1]['rerank_s']:.4f} ({card})", flush=True)
+    hsvc.close()
+    dsvc.close()
+    del off
+
+    # coalescing: 16 POSTs from 8 threads through one CoalescingService
+    expected = {p: [r["id"] for r in svc.query_image(p)[0]] for p in paths}
+    cs = CoalescingService(svc, max_batch=8)
+    capp = make_wsgi_app(cs)
+    got, errors = {}, []
+
+    def client(part):
+        try:
+            for p in part:
+                got[p] = [r["id"] for r in post(capp, p)["results"]]
+        except Exception as e:  # noqa: BLE001 - collected and checked below
+            errors.append(e)
+
+    bs.launches = 0
+    threads = [threading.Thread(target=client, args=(paths[i::8],)) for i in range(8)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    c_launches = bs.launches
+    cs.close()
+    check(not errors, f"coalesced requests failed: {errors}")
+    check(got == expected, "coalesced ids differ from query_image's")
+    coalesce_rec = {"requests_served": cs.requests_served, "batches_run": cs.batches_run,
+                    "requests_per_batch": cs.requests_served / cs.batches_run,
+                    "beam_launches": c_launches, "wall_s": c_wall}
+    print(f"coalescing, 16 POSTs from 8 threads, max_batch=8: {json.dumps(coalesce_rec)} "
+          f"({card})", flush=True)
+    check(cs.requests_served == 16 and cs.batches_run < cs.requests_served,
+          f"coalescing: {cs.batches_run} batches for {cs.requests_served} requests")
+    check(c_launches == cs.batches_run, f"coalescing: {c_launches} beam launches for "
+                                        f"{cs.batches_run} batches")
+
+    return d_launches, coalesce_rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -496,10 +1004,17 @@ def main():
     # 2. kernel against plain on the card
     kres = kernel_phase(bs, beam_search_cases, dev, flush)
 
-    # 3. a device-built HNSW graph at 1M
-    graph_rec = graph_phase(bs, dev, flush, card)
+    # 3. a device-built HNSW graph at 1M, then diffusion on its rows
+    graph_rec, big = graph_phase(bs, dev, flush, card)
+    diff_1m = diffusion_1m_phase(big, dev, flush, card)
+    del big
+    torch.cuda.empty_cache()
 
-    # 4. the main path through the entry points
+    # 4. the global re-rankers at rParis6k's shape, and k-reciprocal at 100k
+    rr = rerank_phase(dev, flush, card)
+    kr_large = kr_large_phase(dev, card)
+
+    # 5. the main path through the entry points (6. the CLIs on stored features)
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
         data_root = os.path.join(tmp, "data")
@@ -608,7 +1123,12 @@ def main():
         cpu_l2.close()
         svc_l2.close()
 
-        # 5. the kernel at the served shapes: Q=1 (a POST) and Q=32 (the largest slot)
+        d_launches, coalesce_rec = served_rerank_phase(
+            bs, svc, lambda: online.make_service(online.build_parser().parse_args(
+                argv + ["--device", "cpu"])), gallery, paths, tmp, data_root, dev, card)
+        cli_rec = cli_phase(rr, tmp, paths, ckpt, dev, card)
+
+        # 7. the kernel at the served shapes: Q=1 (a POST) and Q=32 (the largest slot)
         qv = torch.as_tensor(gallery[:32], device=dev)
         qv = unit_rows(qv + 0.02 * torch.randn(qv.shape, device=dev,
                                                generator=torch.Generator(device=dev).manual_seed(1)))
@@ -633,7 +1153,7 @@ def main():
         "route": "cuda",
         "source": "image_search_engine_for_historical_research_tpu_torch/csrc/beam_search.cu",
         "replaces": "image_search_engine_for_historical_research_tpu/ops/pallas_graph.py:354",
-        "launches": launches,
+        "launches": launches + d_launches + coalesce_rec["beam_launches"],
         "max_abs_err": err,
         "ms": main_rec["ms"],
         "device_ms": main_rec["device_ms"],
@@ -643,6 +1163,10 @@ def main():
         "library_ms": None,
         "us_per_hop": main_rec["us_per_hop"],
     }]}))
+    print(json.dumps({"rerank": {"diffusion_6k": rr["diffusion"], "aqe": rr["aqe"],
+                                 "dba": rr["dba"], "kr_6k": rr["kr"], "kr_100k": kr_large,
+                                 "diffusion_1m": diff_1m, "coalescing": coalesce_rec,
+                                 "clis": cli_rec}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,9 +5,10 @@ per dataset, extract database and query descriptors (queries cropped to their
 gnd bounding boxes) or reuse the stored ones (``--ifextracted``), optionally
 append the stored revisitop1m distractor features (``--include1m``), run the
 chosen matcher in mAP mode (K = database size) or top-K mode, and report the
-revisited E/M/H mAP. ``--qge`` then re-ranks with alphaQE; on a gallery under
-``QGE_BIG`` images the JAX package also runs diffusion, which is not ported
-yet, so there ``--qge`` exits at start-up, before any extraction.
+revisited E/M/H mAP. ``--qge`` then re-ranks: on a gallery under ``QGE_BIG``
+images with alphaQE (k=10, three iterations) and then diffusion
+(``n_trunc=min(2000, N)``, ``kd=min(200, N)``), on a larger one with alphaQE
+alone (k=3, one iteration).
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.benchmark \
@@ -25,6 +26,7 @@ from ..data import configdataset, load_path_features, query_bbxs, save_path_feat
 from ..device import resolve_device
 from ..evaluation import compute_map_revisited
 from ..models.extract import extract_vectors
+from ..rerank.diffusion import diffusion_rerank
 from ..rerank.qe import feature_enhancement
 from .common import (
     add_common_args,
@@ -51,7 +53,7 @@ def build_parser():
     p.add_argument("--include1m", action="store_true",
                    help="append the stored revisitop1m distractor features")
     p.add_argument("--qge", action="store_true",
-                   help="re-rank with alphaQE (galleries of at least 120,000 images)")
+                   help="re-rank with alphaQE + diffusion (alphaQE alone from 120,000 images)")
     return p
 
 
@@ -59,20 +61,13 @@ def run(args):
     """Evaluate every dataset of ``args``; returns ``{dataset: results}``
     with the ranks and ``RevisitedResult`` of the matcher (``"ranks"``,
     ``"map"``) and, with ``--qge``, after alphaQE (``"ranks_qe"``,
-    ``"map_qe"``)."""
+    ``"map_qe"``) and, below ``QGE_BIG`` images, after alphaQE + diffusion
+    (``"ranks_dfs"``, ``"map_dfs"``)."""
     dev = resolve_device(args.device)
     check_matcher(args.matching_method)
     scales = parse_scales(args.multiscale)
     cfgs = {ds: configdataset(ds, args.data_root) for ds in args.datasets.split(",")}
     d1m = load_path_features("revisitop1m", root=args.outputs)[0] if args.include1m else None
-    n1m = 0 if d1m is None else d1m.shape[0]
-    if args.qge:
-        small = [ds for ds, cfg in cfgs.items() if cfg["n"] + n1m < QGE_BIG]
-        if small:
-            raise SystemExit(
-                f"--qge on {', '.join(small)}: a gallery under {QGE_BIG} images is "
-                "re-ranked with alphaQE + diffusion, and diffusion is not ported "
-                "yet: see ROADMAP, diffusion re-rank")
 
     model = None
     out = {}
@@ -104,15 +99,27 @@ def run(args):
         print(res.summary())
         out[dataset] = {"ranks": idx, "map": res}
 
-        if args.qge:  # a gallery of at least QGE_BIG images: alphaQE, k=3, one iteration
-            _, ranks_qe = feature_enhancement(
-                torch.as_tensor(qvecs, device=dev), torch.as_tensor(vecs, device=dev),
-                torch.as_tensor(idx, device=dev), k=3, iterations=1)
+        if args.qge:
+            big = vecs.shape[0] >= QGE_BIG
+            k, iters = (3, 1) if big else (10, 3)
+            vecs_t = torch.as_tensor(vecs, device=dev)
+            qe, ranks_qe = feature_enhancement(
+                torch.as_tensor(qvecs, device=dev), vecs_t,
+                torch.as_tensor(idx, device=dev), k=k, iterations=iters)
             ranks_qe = ranks_qe.cpu().numpy()
             res_qe = compute_map_revisited(ranks_qe, cfg["gnd"], dataset)
             print("after alphaQE:")
             print(res_qe.summary())
             out[dataset].update(ranks_qe=ranks_qe, map_qe=res_qe)
+            if not big:
+                n = vecs.shape[0]
+                ranks_dfs, _ = diffusion_rerank(vecs_t, qe, n_trunc=min(2000, n),
+                                                kd=min(200, n))
+                ranks_dfs = ranks_dfs.cpu().numpy()
+                res_dfs = compute_map_revisited(ranks_dfs, cfg["gnd"], dataset)
+                print("after alphaQE + diffusion:")
+                print(res_dfs.summary())
+                out[dataset].update(ranks_dfs=ranks_dfs, map_dfs=res_dfs)
     return out
 
 

@@ -3,7 +3,9 @@
 Port of ``image_search_engine_for_historical_research_tpu/cli/online.py`` for
 ``--matching-method L2`` (a ``FlatIndex`` over the stored features, built at
 start-up) and ``HNSW`` (the artifact ``cli.offline`` wrote). Other matching
-methods and ``--coalesce`` exit with the ROADMAP item that ports them.
+methods exit with the ROADMAP item that ports them. ``--coalesce MAX_BATCH``
+puts ``serving.batching.CoalescingService`` in front of the service and
+serves on a threaded server.
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.online \
@@ -21,6 +23,7 @@ from ..device import resolve_device
 from ..index import build_flat, load_index
 from ..ops.beam_search import check_ef
 from ..serving.app import SearchService, serve
+from ..serving.batching import CoalescingService
 from .common import add_common_args, check_matcher, load_network, parse_scales
 
 
@@ -36,7 +39,9 @@ def build_parser():
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--no-rerank", action="store_true")
     p.add_argument("--coalesce", type=int, default=0, metavar="MAX_BATCH",
-                   help="micro-batching of concurrent requests: not ported yet")
+                   help="micro-batch concurrent requests into one device pass "
+                        "(serving.batching; implies a threaded server). 0 = off "
+                        "(one query at a time)")
     return p
 
 
@@ -71,9 +76,10 @@ def make_service(args) -> SearchService:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    service = make_service(args)
     if args.coalesce:
-        raise SystemExit("--coalesce is not ported yet: see ROADMAP, serving/batching.py")
-    serve(make_service(args), args.host, args.port)
+        service = CoalescingService(service, max_batch=args.coalesce)
+    serve(service, args.host, args.port, threaded=bool(args.coalesce))
 
 
 if __name__ == "__main__":

@@ -52,6 +52,17 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float().T
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b.transpose(1, 2)`` as f32, like ``_matmul_f32``."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype).transpose(1, 2)
+    if dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _scores(q, x, metric, x2=None):
     s = _matmul_f32(q, x)
     if metric == "l2":
@@ -70,6 +81,15 @@ def _top(s: torch.Tensor, k: int):
     i, perm = torch.sort(i, dim=1)
     v, perm = torch.sort(v.gather(1, perm), dim=1, descending=True, stable=True)
     return v, i.gather(1, perm)
+
+
+def _top_exact(s: torch.Tensor, k: int):
+    """``lax.top_k`` including which of several ids tied at the k-th score
+    are selected (the lowest): the head of a stable descending sort. For
+    score rows with many equal values, such as the zeros of a dense
+    diffusion score row."""
+    v, i = torch.sort(s, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
 
 
 def exact_topk(

@@ -1,9 +1,11 @@
-"""Query-expansion re-ranking: alphaQE feature enhancement and serving qge1.
+"""Query-expansion re-ranking: alphaQE feature enhancement, serving qge1,
+AQE and DBA.
 
-Port of ``feature_enhancement``, ``qge1`` and ``_qge1_topk`` in
-``image_search_engine_for_historical_research_tpu/rerank/qe.py`` (:25-71).
-Row-major ``qvecs (Q, D)``, ``vecs (N, D)``, ``ranks (Q, >=k)``. AQE and DBA
-are not ported yet.
+Port of ``image_search_engine_for_historical_research_tpu/rerank/qe.py``
+(all of it): ``feature_enhancement``, ``qge1`` and ``_qge1_topk``,
+``average_query_expansion`` and ``database_augmentation``. Row-major
+``qvecs (Q, D)``, ``vecs (N, D)``, ``ranks (Q, >=k)``. Top-k selections put
+the lower id first among equal scores, as ``lax.top_k`` (``ops.topk._top``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.normalization import l2n
-from ..ops.topk import exact_scores
+from ..ops.topk import _matmul_f32, _top, exact_scores
 
 
 def _rank_weights(k: int, w: float, device) -> torch.Tensor:
@@ -56,4 +58,36 @@ def qge1(ranks, qvecs, vecs, k: int = 3, w: float = 4.0, out_k: Optional[int] = 
 
 def _qge1_topk(ranks, qvecs, vecs, k: int, w: float, out_k: int) -> torch.Tensor:
     scores = exact_scores(_enhance(ranks, vecs, k, w), vecs)
-    return torch.topk(scores, out_k, dim=1).indices
+    return _top(scores, out_k)[1]
+
+
+def _centered_normalized(a: torch.Tensor, b: torch.Tensor):
+    """Shared centering of queries and gallery, then row L2 norm (no eps)."""
+    center = torch.cat([a, b]).mean(dim=0)
+    return l2n(a - center, eps=0.0), l2n(b - center, eps=0.0)
+
+
+def average_query_expansion(qvecs: torch.Tensor, vecs: torch.Tensor, top_k: int = 3):
+    """Classic AQE: queries and gallery centered and normalized, each vector
+    concatenated with the mean of its top-``top_k`` gallery vectors (a
+    gallery row skips itself). Returns the augmented (qvecs', vecs'), to be
+    searched with the flat index."""
+    qc, vc = _centered_normalized(qvecs, vecs)
+    top_q = _top(_matmul_f32(qc, vc), top_k)[1]
+    q_aug = torch.cat([qc, vc[top_q].mean(dim=1)], dim=1)
+    top_g = _top(_matmul_f32(vc, vc), top_k + 1)[1][:, 1:]       # skip self
+    v_aug = torch.cat([vc, vc[top_g].mean(dim=1)], dim=1)
+    return q_aug, v_aug
+
+
+def database_augmentation(qvecs: torch.Tensor, vecs: torch.Tensor, top_k: int = 3):
+    """Weighted DBA: ``logspace(0, -2, top_k + 1)`` weights over [self, the
+    top-``top_k`` gallery neighbours] on both sides. Returns (qvecs', vecs')."""
+    weights = torch.logspace(0, -2.0, top_k + 1, device=vecs.device)
+    qc, vc = _centered_normalized(qvecs, vecs)
+    top_q = _top(_matmul_f32(qc, vc), top_k)[1]
+    stack_q = torch.cat([qc[:, None, :], vc[top_q]], dim=1)       # (Q, k+1, D)
+    q_new = torch.tensordot(weights, stack_q, dims=([0], [1]))
+    top_g = _top(_matmul_f32(vc, vc), top_k + 1)[1]              # (N, k+1) with self
+    v_new = torch.tensordot(weights, vc[top_g], dims=([0], [1]))
+    return q_new, v_new

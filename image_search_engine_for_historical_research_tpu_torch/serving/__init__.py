@@ -1,5 +1,6 @@
-"""Online serving: the query service and its WSGI app."""
+"""Online serving: the query service, its WSGI app and request coalescing."""
 
 from .app import SearchService, make_wsgi_app, serve
+from .batching import CoalescingService
 
-__all__ = ["SearchService", "make_wsgi_app", "serve"]
+__all__ = ["SearchService", "CoalescingService", "make_wsgi_app", "serve"]

@@ -1,13 +1,13 @@
-"""Online query service: extraction + HNSW search + qge1 behind a WSGI app.
+"""Online query service: extraction + search + re-rank behind a WSGI app.
 
 Port of ``image_search_engine_for_historical_research_tpu/serving/app.py``
-(:103-376, :379-513) in its ``qge1`` and no-rerank modes: load the network
-and the gallery at startup, take an uploaded image on ``POST /``, extract its
-descriptor, search the index, re-rank with one qge1 iteration and return the
-top-K gallery paths (JSON for API clients, HTML for browsers). The batched
-path uploads a raw uint8 canvas and normalizes it and builds the mask on the
-device. ``rerank="diffusion"``, the native JPEG loader and request coalescing
-(``serving/batching.py``) are not ported yet.
+(all of it but the native JPEG loader): load the network and the gallery at
+startup, take an uploaded image on ``POST /``, extract its descriptor, search
+the index, re-rank (one qge1 iteration, or diffusion against a prebuilt
+``rerank.DiffusionOffline`` artifact) and return the top-K gallery paths
+(JSON for API clients, HTML for browsers). The batched path uploads a raw
+uint8 canvas and normalizes it and builds the mask on the device; request
+coalescing in front of it is ``serving.batching.CoalescingService``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,42 @@ import torch
 from ..data.images import IMAGENET_MEAN, IMAGENET_STD, load_test_image
 from ..device import resolve_device
 from ..models.extract import extract_vectors_single, make_extract_fn
+from ..ops.topk import _top_exact
 from ..rerank.qe import qge1
+
+
+def _diffusion_shortlist_scores(ids3, qvec, vecs_dev, off_ids, off_scores):
+    """Diffusion online pass seeded from the index shortlist: dense (N,)
+    scores from the ``ids3`` seeds' offline rows, weighted by each seed's
+    similarity cubed. ``off_ids``/``off_scores`` are the whole device
+    artifact (indexed by ``ids3``) or the seed rows already gathered from a
+    host artifact. The seed rows are cast to the query's f32, as JAX's
+    promotion of a bf16 gallery does; the f16 or f32 scores are summed in
+    f32."""
+    n = vecs_dev.shape[0]
+    full = off_ids.shape[0] == n
+    sims = vecs_dev[ids3].to(qvec.dtype) @ qvec                 # (s,) seed similarities
+    w = sims.clamp(min=0.0) ** 3
+    rows_i = off_ids[ids3] if full else off_ids                 # (s, T)
+    rows_v = (off_scores[ids3] if full else off_scores).float() * w[:, None]
+    dense = torch.zeros(n, dtype=torch.float32, device=vecs_dev.device)
+    return dense.index_add_(0, rows_i.reshape(-1).long(), rows_v.reshape(-1))
+
+
+def _diffusion_shortlist_scores_batch(ids3, qvecs, vecs_dev, off_ids, off_scores, k_out):
+    """Batched diffusion online pass: ``ids3`` (B, s) seed ids per query, a
+    (B, s, T) host gather or the whole device artifact; returns the top
+    ``k_out`` (scores, ids) of each query's dense row."""
+    n = vecs_dev.shape[0]
+    B = ids3.shape[0]
+    full = off_ids.shape[0] == n
+    sims = torch.einsum("bsd,bd->bs", vecs_dev[ids3].to(qvecs.dtype), qvecs)
+    w = sims.clamp(min=0.0) ** 3
+    rows_i = off_ids[ids3] if full else off_ids                 # (B, s, T)
+    rows_v = (off_scores[ids3] if full else off_scores).float() * w[:, :, None]
+    dense = torch.zeros((B, n), dtype=torch.float32, device=vecs_dev.device)
+    dense.scatter_add_(1, rows_i.reshape(B, -1).long(), rows_v.reshape(B, -1))
+    return _top_exact(dense, k_out)
 
 
 class SearchService:
@@ -47,10 +82,15 @@ class SearchService:
         image_size: int = 1024,
         rerank: "bool | str" = True,
         image_root: Optional[str] = None,
+        diffusion_offline=None,
         device="cuda",
     ):
         """``rerank``: ``"qge1"``/``True`` = one qge1 iteration;
-        ``False``/``None`` = index order as-is."""
+        ``"diffusion"`` = random-walk re-rank seeded by the top 3 of the
+        index shortlist against ``diffusion_offline`` (a
+        ``rerank.DiffusionOffline`` on this device, or on the host, where
+        only the seed rows are gathered); ``False``/``None`` = index order
+        as-is."""
         self.device = resolve_device(device)
         self.model = model
         self.index = index
@@ -61,10 +101,16 @@ class SearchService:
         self.scales = tuple(scales)
         self.image_size = image_size
         self.rerank = "qge1" if rerank is True else (rerank or None)
-        if self.rerank == "diffusion":
-            raise NotImplementedError("rerank='diffusion' is not ported yet (ROADMAP)")
-        if self.rerank not in (None, "qge1"):
+        if self.rerank not in (None, "qge1", "diffusion"):
             raise ValueError(f"unknown rerank mode: {rerank!r}")
+        self.diffusion_offline = diffusion_offline
+        if self.rerank == "diffusion":
+            if diffusion_offline is None:
+                raise ValueError("rerank='diffusion' needs a diffusion_offline artifact")
+            if (not diffusion_offline.on_host
+                    and diffusion_offline.trunc_ids.device.type != self.device.type):
+                raise ValueError(f"diffusion artifact is on {diffusion_offline.trunc_ids.device}, "
+                                 f"service on {self.device}")
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, service on {self.device}")
         self._load_pool = ThreadPoolExecutor(max_workers=8)
@@ -94,12 +140,31 @@ class SearchService:
             return os.path.join(self.image_root, p)
         return p
 
-    def _rerank(self, idx: np.ndarray) -> np.ndarray:
-        if self.rerank != "qge1":
+    def _rerank(self, idx: np.ndarray, qvecs: torch.Tensor) -> np.ndarray:
+        """Re-rank the index shortlist ``idx`` (B, K) of queries ``qvecs``."""
+        if self.rerank == "qge1":
+            ranks = qge1(torch.as_tensor(idx, device=self.device), None, self._vecs_dev,
+                         k=min(3, idx.shape[1]), out_k=min(self.K, self.vecs.shape[0]))
+            return ranks.cpu().numpy()
+        if self.rerank != "diffusion":
             return idx
-        ranks = qge1(torch.as_tensor(idx, device=self.device), None, self._vecs_dev,
-                     k=min(3, idx.shape[1]), out_k=min(self.K, self.vecs.shape[0]))
-        return ranks.cpu().numpy()
+        off = self.diffusion_offline
+        seed_ids = idx[:, :min(3, idx.shape[1])]
+        if off.on_host:       # gather only the seed rows, then upload them
+            oi = torch.as_tensor(off.trunc_ids[seed_ids], device=self.device)
+            os_ = torch.as_tensor(off.scores[seed_ids], device=self.device)
+        else:
+            oi, os_ = off.trunc_ids, off.scores
+        seeds = torch.as_tensor(seed_ids, device=self.device)
+        if qvecs.shape[0] == 1:
+            dense = _diffusion_shortlist_scores(seeds[0], qvecs[0], self._vecs_dev,
+                                                oi if not off.on_host else oi[0],
+                                                os_ if not off.on_host else os_[0])
+            top = _top_exact(dense[None], self.K)[1]
+        else:
+            top = _diffusion_shortlist_scores_batch(seeds, qvecs, self._vecs_dev, oi, os_,
+                                                    self.K)[1]
+        return top.cpu().numpy()
 
     def query_image(self, image_path: str) -> Tuple[List[dict], dict]:
         """Full serving path for one image; returns (results, timing)."""
@@ -110,7 +175,7 @@ class SearchService:
         _, idx = self.index.search(qvec[None, :], self.K)
         idx = idx.cpu().numpy()
         t2 = time.perf_counter()
-        final = self._rerank(idx)[0]
+        final = self._rerank(idx, torch.as_tensor(qvec[None, :], device=self.device))[0]
         t3 = time.perf_counter()
         results = [
             {"rank": r, "path": self.paths[i], "id": int(i)}
@@ -176,7 +241,7 @@ class SearchService:
         _, idx = self.index.search(qvecs, self.K)
         idx = idx.cpu().numpy()
         t2 = time.perf_counter()
-        final = self._rerank(idx)
+        final = self._rerank(idx, qvecs)
         t3 = time.perf_counter()
         timing = {
             "prepare_s": prepared["prepare_s"],
@@ -300,10 +365,19 @@ def make_wsgi_app(service: SearchService):
     return app
 
 
-def serve(service: SearchService, host: str = "0.0.0.0", port: int = 8080):
-    """Blocking single-threaded dev server (``wsgiref``)."""
-    from wsgiref.simple_server import make_server
+def serve(service: SearchService, host: str = "0.0.0.0", port: int = 8080,
+          threaded: bool = False):
+    """Blocking dev server (``wsgiref``). ``threaded=True`` handles each
+    request on its own thread, which ``serving.batching.CoalescingService``
+    needs to see concurrent requests at all."""
+    import socketserver
+    from wsgiref.simple_server import WSGIServer, make_server
 
-    httpd = make_server(host, port, make_wsgi_app(service))
+    cls = WSGIServer
+    if threaded:
+        class cls(socketserver.ThreadingMixIn, WSGIServer):  # noqa: N801
+            daemon_threads = True
+
+    httpd = make_server(host, port, make_wsgi_app(service), server_class=cls)
     print(f"serving on http://{host}:{port}")
     httpd.serve_forever()

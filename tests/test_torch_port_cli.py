@@ -1,6 +1,7 @@
-"""The offline, online (L2) and benchmark CLIs of the port against the JAX
-package's: the same JPEGs and checkpoint, the same feature stores and index
-artifacts read by both packages, the same ids and the same revisited mAP."""
+"""The offline, online (L2), benchmark, test_reranking, test_custom and
+retrieve CLIs of the port against the JAX package's: the same JPEGs and
+checkpoint, the same feature stores and index artifacts read by both
+packages, the same ids and the same mAP."""
 
 import os
 import pickle
@@ -11,13 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from image_search_engine_for_historical_research_tpu.cli import benchmark as j_benchmark
 from image_search_engine_for_historical_research_tpu.cli import offline as j_offline
 from image_search_engine_for_historical_research_tpu.cli import online as j_online
+from image_search_engine_for_historical_research_tpu.cli import test_custom as j_test_custom
+from image_search_engine_for_historical_research_tpu.cli import test_reranking as j_test_reranking
 from image_search_engine_for_historical_research_tpu.data import (
     load_path_features as j_load_features,
 )
 from image_search_engine_for_historical_research_tpu.evaluation import (
     compute_map_revisited as j_compute_map_revisited,
+)
+from image_search_engine_for_historical_research_tpu.evaluation.ranks import (
+    load_ranked_results as j_load_ranked,
 )
 from image_search_engine_for_historical_research_tpu.index import load_index as j_load_index
 from image_search_engine_for_historical_research_tpu.index.matchers import (
@@ -30,9 +37,17 @@ from image_search_engine_for_historical_research_tpu.rerank import (
 from image_search_engine_for_historical_research_tpu_torch.cli import benchmark as t_benchmark
 from image_search_engine_for_historical_research_tpu_torch.cli import offline as t_offline
 from image_search_engine_for_historical_research_tpu_torch.cli import online as t_online
+from image_search_engine_for_historical_research_tpu_torch.cli import retrieve as t_retrieve
+from image_search_engine_for_historical_research_tpu_torch.cli import test_custom as t_test_custom
+from image_search_engine_for_historical_research_tpu_torch.cli import (
+    test_reranking as t_test_reranking,
+)
 from image_search_engine_for_historical_research_tpu_torch.data import (
     load_path_features,
     save_path_feature,
+)
+from image_search_engine_for_historical_research_tpu_torch.evaluation.ranks import (
+    load_ranked_results as t_load_ranked,
 )
 from image_search_engine_for_historical_research_tpu_torch.index import HNSWIndex, load_index
 from image_search_engine_for_historical_research_tpu_torch.models import from_flax_variables
@@ -189,12 +204,86 @@ def test_benchmark_map_matches_jax(tmp_path, monkeypatch):
                                                             "roxford5k"))
 
 
+def _capture(monkeypatch, module, name):
+    """Record every value ``module.<name>`` returns while the JAX CLI runs."""
+    seen = []
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        seen.append(fn(*args, **kwargs))
+        return seen[-1]
+
+    monkeypatch.setattr(module, name, spy)
+    return seen
+
+
 def test_benchmark_qge_on_small_gallery_exits_before_extraction(tmp_path, monkeypatch):
-    _, _, _, argv = _revisited(tmp_path)
-    argv = [a for a in argv if a != "--ifextracted"]
-    monkeypatch.setattr(t_benchmark, "extract_vectors", None)   # must not be reached
-    with pytest.raises(SystemExit, match="diffusion"):
-        t_benchmark.main(argv + ["--qge"])
+    """``--qge`` on a gallery under ``QGE_BIG`` no longer exits: it runs
+    alphaQE (k=10, three iterations) and then diffusion, and its ranks and
+    ``map_dfs`` are the JAX benchmark CLI's."""
+    db, q, gnd, argv = _revisited(tmp_path)
+    out = t_benchmark.run(t_benchmark.build_parser().parse_args(
+        argv + ["--matching-method", "L2", "--qge"]))["roxford5k"]
+    jargv = [a for a in argv if a not in ("--device", "cpu")] + ["--qge"]
+    seen = _capture(monkeypatch, j_benchmark, "compute_map_revisited")
+    assert j_benchmark.main(jargv) == 0
+    base, after_qe, after_dfs = seen
+    _assert_same_map(out["map"], base)
+    _assert_same_map(out["map_qe"], after_qe)
+    _assert_same_map(out["map_dfs"], after_dfs)
+    assert out["ranks_dfs"].shape == (len(q), len(db))
+    _, ranks_qe = j_feature_enhancement(jnp.asarray(q), jnp.asarray(db),
+                                        jnp.asarray(out["ranks"]), k=10, iterations=3)
+    np.testing.assert_array_equal(out["ranks_qe"], np.asarray(ranks_qe))
+
+
+def test_test_reranking_maps_match_jax(tmp_path, monkeypatch, capsys):
+    """Every global method of ``cli.test_reranking`` gives the JAX CLI's
+    revisited mAP on the same stored features."""
+    _revisited(tmp_path)
+    argv = ["--dataset", "roxford5k", "--data-root", str(tmp_path / "rdata"),
+            "--outputs", str(tmp_path / "rout"), "--methods", "qge,aqe,dba,kr,diffusion"]
+    out = t_test_reranking.run(t_test_reranking.build_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    seen = _capture(monkeypatch, j_test_reranking, "compute_map_revisited")
+    assert j_test_reranking.main(argv) == 0
+    names = ["baseline", "qge", "aqe", "dba", "kr", "diffusion"]
+    assert list(out) == names and len(seen) == len(names)
+    for name, ref in zip(names, seen):
+        _assert_same_map(out[name], ref)
+    assert "after kr:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("entry", ["test_custom", "retrieve"])
+def test_custom_map_and_saved_ranks_match_jax(collection, tmp_path, monkeypatch, entry):
+    """``cli.test_custom`` (and ``cli.retrieve --mode custom``) on label
+    folders: JAX's folder-label mAP and the same saved ranking files."""
+    root, data, paths, common = collection
+    folders = tmp_path / "folders"
+    for split, part in (("db", paths[:7]), ("q", paths[7:])):
+        for i, src in enumerate(part):
+            label = folders / split / f"label{i % 3}"
+            label.mkdir(parents=True, exist_ok=True)
+            (label / os.path.basename(src)).write_bytes(open(src, "rb").read())
+    args = ["--db-dir", str(folders / "db"), "--query-dir", str(folders / "q"), "--K", "4",
+            "--save-ranks", "--html-sheet"] + [a for a in common if a != "--data-root"
+                                               and a != str(data)]
+    seen = _capture(monkeypatch, j_test_custom, "map_custom")
+    with one_block_arch():
+        assert j_test_custom.main(args + ["--outputs", str(tmp_path / "jax")]) == 0
+        targs = args + ["--outputs", str(tmp_path / "torch"), "--device", "cpu"]
+        if entry == "retrieve":
+            assert t_retrieve.main(["--mode", "custom"] + targs) == 0
+        else:
+            res = t_test_custom.run(t_test_custom.build_parser().parse_args(targs))
+            assert res["map"] == seen[0] and res["saved"]["html"]
+    ranks_t, qp_t, dp_t = t_load_ranked(str(tmp_path / "torch" / "ranks"))
+    ranks_j, qp_j, dp_j = j_load_ranked(str(tmp_path / "jax" / "ranks"))
+    np.testing.assert_array_equal(ranks_t, ranks_j)
+    assert qp_t == qp_j and dp_t == dp_j
+    for name in ("custom_ranking_result.json", "custom_ranking_result.html"):
+        assert ((tmp_path / "torch" / "ranks" / name).read_text()
+                == (tmp_path / "jax" / "ranks" / name).read_text())
 
 
 @pytest.mark.parametrize("cli", ["offline", "benchmark"])

@@ -27,8 +27,12 @@ from image_search_engine_for_historical_research_tpu.index.base import (
 from image_search_engine_for_historical_research_tpu.models import extract as j_extract
 from image_search_engine_for_historical_research_tpu.models import init_network as j_init
 from image_search_engine_for_historical_research_tpu_torch.cli import online as t_online
+from image_search_engine_for_historical_research_tpu_torch.cli import (
+    test_reranking as t_test_reranking,
+)
 from image_search_engine_for_historical_research_tpu_torch.models import from_flax_variables
 from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
+from image_search_engine_for_historical_research_tpu_torch.rerank import build_diffusion_offline
 from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
 from torch_port_helpers import ONE_BLOCK, one_block_arch, perturbed_variables, write_images
 
@@ -143,10 +147,16 @@ def test_unported_matching_methods_exit(services, extra, match):
         t_online.make_service(args)
 
 
-def test_unported_modes_raise(services):
-    _, tsvc, _, argv = services
-    with pytest.raises(SystemExit, match="coalesce"):
-        t_online.main(argv + ["--device", "cpu", "--coalesce", "4"])
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        type(tsvc)(tsvc.model, tsvc.index, tsvc.vecs, tsvc.paths, rerank="diffusion",
-                   device="cpu")
+def test_unported_modes_raise(services, tmp_path):
+    """What the port still refuses, at start-up before any data is read:
+    the local-feature re-rankers of ``cli.test_reranking``; and a sharded
+    diffusion build. ``--coalesce`` and ``rerank="diffusion"`` are served
+    (``tests/test_torch_port_serving.py``)."""
+    _, tsvc, _, _ = services
+    for methods in ("sift", "loftr", "qge,sift"):
+        argv = ["--dataset", "roxford5k", "--data-root", str(tmp_path / "missing"),
+                "--methods", methods, "--device", "cpu"]
+        with pytest.raises(SystemExit, match="local-feature re-rankers"):
+            t_test_reranking.main(argv)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        build_diffusion_offline(torch.as_tensor(tsvc.vecs), n_trunc=8, kd=4, mesh=object())
