@@ -32,7 +32,21 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    the recompute solver) with the kNN-graph and sweep seconds and the peak
    memory; 64 sampled rows solved again by the tables solver over the same
    kNN graph (at least 61 within 1e-3 of the row's largest score); the
-   online pass for 70 queries, timed.
+   online pass for 70 queries, timed. Then the PQ family on the same rows
+   (f32 in the builders): ``build_pq(M=16, Ks=8192)``, ``build_hnsw_pq(M=16,
+   Ks=8192, m=16, opq="refine", refine_M=32)`` (the device graph builder)
+   and ``build_ivfpq(nlist=316, M=16, Ks=256, nprobe=64, refine_M=32)``, each
+   build's stage seconds and peak memory; recall@10 and @100 against the
+   exact top-100 and ms at Q=70 and Q=1 of ``adc`` and ``adc+refine`` of
+   each and ``graph+refine`` (ef=320, 32 seeds, with and without the
+   centroid walk); each route's ids for 8 queries held against the same
+   artifact loaded and searched on the CPU (equal but at ties, 1e-5
+   relative); ``adc+refine`` recall@100 at least ``adc``'s; the device ops
+   (ADC scan, IVF probe, both refine re-ranks, both PQ walks, the encode
+   pass) timed beside their bounds, and the host expansion timed alone.
+   Then at 262,144 of the rows: two builds of ``build_pq`` and of
+   ``build_ivfpq`` from one seed give identical arrays, and a streaming
+   ``build_pq`` from device-tensor chunks equals the in-memory build.
 4. The global re-rankers at rParis6k's shape: 6,322 x 2048 clustered unit
    rows (11 landmarks among 200 other clusters) and 70 queries, f32, made on
    the card, with a revisited gnd. alphaQE (k=10, 3 iterations) then
@@ -65,7 +79,12 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    the same artifact loaded on the host give the card's ids. Then 16 POSTs
    from 8 threads through ``CoalescingService(max_batch=8)``: each request's
    ids equal ``query_image``'s, fewer batches than requests, one launch a
-   batch.
+   batch. Before that, the PQ family served: ``cli.offline --ifextracted
+   --ifgenerate`` with ``HNSW_NanoPQ --opq refine``, ``IVFPQ --refine-m 8``
+   and ``PQ`` over both stores, each served by ``cli.online.make_service``:
+   4 WSGI POSTs and a ``query_batch`` of the same 4 (equal ids), one query on
+   a CPU service from the same artifact (equal ids), the PQ ops' calls
+   counted on the served path.
 6. The CLIs on stored features: phase 4's rows and gnd as a ``rparis6k``
    feature store and gnd pickle; ``cli.benchmark --ifextracted --qge``
    (alphaQE + diffusion), ``cli.test_reranking --methods
@@ -80,7 +99,8 @@ event, so the host's launch gaps are hidden (``device_ms``).
 
 Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
 run: the HNSW and diffusion services and the coalesced batches), a
-``{"rerank": {...}}`` line with the re-ranking phases' numbers, then the
+``{"rerank": {...}}`` line with the re-ranking phases' numbers, a
+``{"pq": {...}}`` line with the PQ phases' numbers, then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
@@ -696,6 +716,43 @@ def kr_large_phase(dev, card, n=100_000, nq=70):
     return rec
 
 
+def top_by_topk(s, k):
+    """The alternative to ``ops.topk._top_exact``'s stable sort that this
+    script times beside it, with the same result: ``torch.topk`` finds the
+    k-th score, every score above it is kept, and the lowest ids among those
+    equal to it fill the rest."""
+    n = s.shape[1]
+    kth = torch.topk(s, k, dim=1).values[:, -1:]
+    above, tied = s > kth, s == kth
+    take = above | (tied & (torch.cumsum(tied, 1) <= k - above.sum(1, keepdim=True)))
+    col = torch.arange(n, device=s.device)
+    i = torch.topk(torch.where(take, col, col + n), k, dim=1, largest=False).indices
+    i = i.sort(dim=1).values
+    v, perm = torch.sort(s.gather(1, i), dim=1, descending=True, stable=True)
+    return v, i.gather(1, perm)
+
+
+def top_exact_rows(cases, flush):
+    """``ops.topk._top_exact`` (a stable sort's head) beside ``top_by_topk``
+    on score rows with many exact ties: equal ids and scores, and each one's
+    time with and without the host's launch gaps."""
+    from image_search_engine_for_historical_research_tpu_torch.ops.topk import _top_exact
+
+    out = {}
+    for label, s, k in cases:
+        s = s.contiguous()
+        v, i = _top_exact(s, k)
+        v2, i2 = top_by_topk(s, k)
+        check(torch.equal(i, i2) and torch.equal(v, v2),
+              f"_top_exact and the topk form differ at {label}")
+        sort = lambda: _top_exact(s, k)                                      # noqa: E731
+        topk = lambda: top_by_topk(s, k)                                     # noqa: E731
+        out[label] = {"ms": time_ms(sort, 20, flush), "topk_form_ms": time_ms(topk, 20, flush),
+                      "device_ms": time_ms(sort, 20, flush, spin=True),
+                      "topk_form_device_ms": time_ms(topk, 20, flush, spin=True)}
+    return out
+
+
 def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
     """Diffusion beyond the reference regime on the 1M bf16 rows: the
     budgeted device artifact (T=512, recompute solver), n_check rows solved
@@ -741,17 +798,408 @@ def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
     check(tuple(dense.shape) == (Q_BIG, n) and bool(torch.isfinite(dense).all()),
           "1M diffusion online scores")
     top1 = float((dense.argmax(1) == pick).float().mean())
+    # the top-k of the diffusion callers on dense score rows (mostly exact
+    # zeros): the 1M rows at k=100 and the served gallery's width at K=10
+    top_rec = top_exact_rows((("1M Q=70 k=100", dense, 100),
+                              ("4112 Q=1 k=10", dense[:1, :4112], 10),
+                              ("4112 Q=4 k=10", dense[:4, :4112], 10)), flush)
     rec = {"n": n, "T": st["T"], "kd": 50, "batch": 1024, "solver": st["solver"],
            "build_s": build_s, "knn_s": st["knn_s"], "sweep_s": st["sweep_s"],
            "batches": -(-n // 1024), "peak_gib": peak,
            "artifact_gb": (off.trunc_ids.numel() * 4 + off.scores.numel() * 2) / 1e9,
            "tables_check_rows": n_check, "tables_agree_1e-3": agree,
            "tables_worst_rel_err": float(err.max()), "online_queries": Q_BIG,
-           "online_ms": online_ms, "online_top1_own_row": top1}
+           "online_ms": online_ms, "online_top1_own_row": top1, "top_exact": top_rec}
     print(f"diffusion at 1M bf16 beyond the regime: {json.dumps(rec)} ({card})", flush=True)
     del off, dense
     torch.cuda.empty_cache()
     return rec
+
+
+BF16_FLOPS = 989e12         # H100 SXM bf16 dense tensor cores
+
+
+def bound_of(nbytes, ops, flops=F32_FLOPS):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
+    and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class CallCounter:
+    """Count the calls of functions where their callers look them up: each
+    ``(module, name)`` is wrapped while the counter is entered."""
+
+    def __init__(self, targets):
+        self.targets, self.counts = targets, {}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+            self.counts.setdefault(key, 0)
+
+            def wrapped(*a, _fn=fn, _key=key, **kw):
+                self.counts[_key] += 1
+                return _fn(*a, **kw)
+
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def pq_targets():
+    """The PQ family's device ops, where the indexes call them."""
+    from image_search_engine_for_historical_research_tpu_torch.index import hnsw, ivfpq
+    from image_search_engine_for_historical_research_tpu_torch.index import pq as index_pq
+
+    return [(index_pq, "pq_search"), (index_pq, "pq_refine_rerank"), (hnsw, "pq_search"),
+            (hnsw, "_rerank_refine"), (hnsw, "hnsw_search_batch_pq"),
+            (hnsw, "hnsw_search_batch_pq_centroid"), (ivfpq, "_ivfpq_search"),
+            (ivfpq, "_ivfpq_rerank_refine")]
+
+
+def trace_op(fn):
+    """One call of ``fn`` under ``torch.profiler`` (after a warm call): the
+    device events it ran (kernels, copies, sets), their busy time (the union
+    of their intervals), the span from the first event's start to the last
+    one's end, the idle share of that span (the gaps between events, where
+    the card waits for the host) and the three names with the most device
+    time. ``{"error": ...}`` when the profiler records no device events on
+    this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    except Exception as exc:  # the profiler is untried on some machines
+        return {"error": repr(exc)}
+    if not spans:
+        return {"error": "no device events recorded"}
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = end - spans[0][0]
+    by_name = {}
+    for e in events:
+        by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + (e.time_range.end
+                                                               - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"device_events": len(spans), "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span if span > 0 else 0.0, "top_ms": top}
+
+
+def compare_scored(s_ref, i_ref, s_got, i_got, rtol, label):
+    """``got`` against ``ref`` rank by rank: where the ids differ, the two
+    scores at that rank are within ``rtol`` (relative) of each other, i.e.
+    the ids tie. Returns (ranks that differ, largest relative gap there)."""
+    s_ref, i_ref, s_got, i_got = (torch.as_tensor(t).cpu() for t in (s_ref, i_ref, s_got, i_got))
+    moved = i_ref.long() != i_got.long()
+    gap = ((s_ref - s_got).abs() / s_ref.abs().clamp(min=1e-30))[moved]
+    worst = float(gap.max()) if gap.numel() else 0.0
+    check(worst <= rtol, f"{label}: ids differ beyond ties (relative gap {worst} > {rtol})")
+    return int(moved.sum()), worst
+
+
+def pq_1m_phase(vecs, dev, flush, card):
+    """The PQ family at the reference script's scale on the graph phase's
+    1M x 2048 bf16 rows: three builds, every search route's recall and
+    times, the card against the CPU on one artifact, and the device ops
+    beside their bounds."""
+    from image_search_engine_for_historical_research_tpu_torch.index import (
+        FlatIndex,
+        build_hnsw_pq,
+        build_ivfpq,
+        build_pq,
+        hnsw as hnsw_mod,
+        ivfpq as ivf_mod,
+        load_index,
+        normalize_rows,
+        save_index,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.ops import graph_search as gs
+    from image_search_engine_for_historical_research_tpu_torch.ops import pq as pq_ops
+    from image_search_engine_for_historical_research_tpu_torch.ops.topk import _top_exact
+
+    n, d = vecs.shape
+    q = vecs[:Q_BIG].float().contiguous()
+    qn = normalize_rows(q)
+    _, exact = FlatIndex(vectors=vecs, storage_dtype="bfloat16").search(q, 100)
+    out = {"n": n, "d": d, "queries": Q_BIG, "builds": {}, "routes": {}, "ops": {}}
+    tmp = tempfile.mkdtemp(prefix="pq1m_")
+
+    def build(name, fn, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = {}
+        t0 = time.perf_counter()
+        ix = fn(vecs, stats=st, device=dev, **kw)
+        torch.cuda.synchronize()
+        st.update(total_s=time.perf_counter() - t0,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out["builds"][name] = st
+        print(f"PQ build {name} {json.dumps(kw)}: {json.dumps(st)} ({card})", flush=True)
+        path = os.path.join(tmp, name)
+        save_index(ix, path)
+        return ix, load_index(path, device="cpu")
+
+    def route(name, ix, cpu_ix, **kw):
+        _, ids = ix.search(q, 100, **kw)
+        rec = {"recall10": recall_at(exact, ids, 10), "recall100": recall_at(exact, ids, 100),
+               "ms_q70": time_ms(lambda: ix.search(q, 100, **kw), 5, flush),
+               "ms_q1": time_ms(lambda: ix.search(q[:1], 100, **kw), 10, flush)}
+        s_g, i_g = ix.search(q[:8], 100, **kw)
+        s_c, i_c = cpu_ix.search(q[:8].cpu(), 100, **kw)
+        rec["cpu_ranks_moved"], rec["cpu_max_rel_gap"] = compare_scored(
+            s_c, i_c, s_g, i_g, 1e-5, f"PQ route {name}: card vs CPU")
+        out["routes"][name] = rec
+        print(f"PQ route {name}: {json.dumps(rec)} ({card})", flush=True)
+        return rec
+
+    def op(name, fn, nbytes, ops, flops=F32_FLOPS, reps=10, **extra):
+        ms = time_ms(fn, reps, flush)
+        bnd, by = bound_of(nbytes, ops, flops)
+        rec = {"ms": ms, "bound_ms": bnd, "bound_by": by, "share_of_bound": bnd / ms,
+               "bytes": nbytes, "ops": ops, **extra, "trace": trace_op(fn)}
+        out["ops"][name] = rec
+        print(f"PQ op {name}: {json.dumps(rec)} ({card})", flush=True)
+
+    # (a) Nano_PQ's point: the plain ADC scan
+    a, a_cpu = build("pq", build_pq, M=16, Ks=8192)
+    route("pq adc", a, a_cpu, method="adc")
+    M, Ks, ds = a.codewords.shape
+    for qq in (Q_BIG, 1):
+        op(f"adc_scan Q={qq}", lambda qq=qq: pq_ops.pq_search(a.codebook, a.codes, qn[:qq], 100,
+                                                               chunk=262144),
+           n * M * 2 + M * Ks * ds * 4 + qq * d * 4 + qq * 100 * 12,
+           qq * M * Ks * ds * 2 + n * M * qq, N=n, M=M, Ks=Ks)
+    # the chunk top-k of the scan on its own score rows (rows sharing a code tie)
+    s_adc = -pq_ops.adc(pq_ops.pq_dist_table(a.codebook, qn), pq_ops.codes_long(a.codes[:262144]))
+    out["top_exact"] = top_exact_rows((("ADC 262144 Q=70 k=100", s_adc, 100),
+                                       ("ADC 262144 Q=70 k=400", s_adc, 400),
+                                       ("ADC 262144 Q=1 k=100", s_adc[:1], 100)), flush)
+    print(f"PQ top-k of the scan's chunks: {json.dumps(out['top_exact'])} ({card})", flush=True)
+    del s_adc
+    st = out["builds"]["pq"]
+    enc_ops = n * M * Ks * ds * 2
+    bnd, by = bound_of(n * d * 4 + n * M * 2, enc_ops, BF16_FLOPS)
+    out["ops"]["encode_pass"] = {"ms": st["encode_s"] * 1e3, "bound_ms": bnd, "bound_by": by,
+                                 "share_of_bound": bnd / (st["encode_s"] * 1e3),
+                                 "ops": enc_ops, "rows": n, "timer": "host clock after sync"}
+    print(f"PQ op encode_pass: {json.dumps(out['ops']['encode_pass'])} ({card})", flush=True)
+    del a, a_cpu
+    torch.cuda.empty_cache()
+
+    # (b) PQ + HNSW, the JAX package's recommended route (opq on the residual level)
+    b, b_cpu = build("hnsw_pq", build_hnsw_pq, M=16, Ks=8192, m=16, opq="refine", refine_M=32)
+    check(out["builds"]["hnsw_pq"]["builder"] == "device", "build_hnsw_pq did not pick the "
+                                                           "device builder at 1M")
+    print(f"HNSW-PQ unique codes U = {b.unique_codes.shape[0]}", flush=True)
+    for name, kw in (("hnsw_pq adc", {"method": "adc"}),
+                     ("hnsw_pq adc+refine", {"method": "adc+refine"}),
+                     ("hnsw_pq graph+refine centroid", {"method": "graph+refine", "ef": 320,
+                                                        "n_seeds": 32}),
+                     ("hnsw_pq graph+refine coarse", {"method": "graph+refine", "ef": 320,
+                                                      "n_seeds": 32, "centroid_walk": False})):
+        route(name, b, b_cpu, **kw)
+    check(out["routes"]["hnsw_pq adc+refine"]["recall100"]
+          >= out["routes"]["hnsw_pq adc"]["recall100"], "HNSW-PQ: adc+refine below adc")
+    # the host expansion between the unique-code scan and the re-rank
+    cb, rcb = pq_ops.PQCodebook(b.codewords, b.rotation), pq_ops.PQCodebook(
+        b.refine_codewords, b.refine_rotation)
+    E = 400
+    s_u, i_u = pq_ops.pq_search(cb, b.unique_codes, qn, E)
+    i_h, s_h = i_u.cpu().numpy(), s_u.cpu().numpy()
+    t0 = time.perf_counter()
+    _, o_idx, o_u, valid, _ = b._expand_members(i_h, s_h, E)
+    out["ops"]["expand_members_host"] = {"ms": (time.perf_counter() - t0) * 1e3, "Q": Q_BIG,
+                                         "slots": E, "timer": "host clock"}
+    ou, oi, va = (torch.as_tensor(t, device=dev) for t in (o_u, o_idx, valid))
+    Mr, Ksr, dsr = b.refine_codewords.shape
+    op(f"refine_rerank hnsw_pq Q={Q_BIG} E={E}",
+       lambda: hnsw_mod._rerank_refine(cb, b.unique_codes, rcb, b.refine_codes, qn, ou, oi, va, 100),
+       Q_BIG * E * (M * 2 + Mr + 8) + (M * Ks * ds + Mr * Ksr * dsr + d * d) * 4,
+       Q_BIG * E * d * 6 + Q_BIG * E * d * d * 2, E=E)
+    for walk, centroid in (("pq_walk coarse", False), ("pq_walk centroid", True)):
+        rows = {"n": 0}
+        fn_name = "_pq2_dist" if centroid else "_adc"
+        orig = getattr(gs, fn_name)
+
+        def spy(*args, _orig=orig):
+            ids = args[-1] if centroid else None
+            if ids is not None:
+                rows["n"] += int((ids >= 0).sum())
+            else:   # LUT rows x code rows (one set, or a set per LUT row)
+                rows["n"] += int(args[0].shape[0] * args[1].shape[-2])
+            return _orig(*args)
+
+        kw = dict(k=320, ef=320, coarse_ids=b.coarse_ids, n_seeds=32)
+        if centroid:
+            run = lambda: gs.hnsw_search_batch_pq_centroid(  # noqa: E731
+                b.unique_codes, b.codewords, b.node_codes, b.refine_codewords, b.node_norm2,
+                b.nbr0, b.nbru, b.entry, qn, rotation=b.rotation, node_rotation=b.refine_rotation,
+                **kw)
+            per_row = M * 2 + Mr + 4 + 4
+        else:
+            run = lambda: gs.hnsw_search_batch_pq(  # noqa: E731
+                b.unique_codes, b.codewords, b.nbr0, b.nbru, b.entry, qn, **kw)
+            per_row = M * 2 + 4
+        setattr(gs, fn_name, spy)
+        try:
+            run()
+        finally:
+            setattr(gs, fn_name, orig)
+        op(walk, run, rows["n"] * per_row, rows["n"] * (M + (Mr + 3 if centroid else 0)),
+           reps=3, rows_scored=rows["n"], ef=320, n_seeds=32)
+    del b, b_cpu, ou, oi, va
+    torch.cuda.empty_cache()
+
+    # (c) IVF-PQ: FAISS knn.py's defaults plus refine codes
+    c, c_cpu = build("ivfpq", build_ivfpq, nlist=316, M=16, Ks=256, nprobe=64, refine_M=32)
+    for name, kw in (("ivfpq adc", {"method": "adc"}), ("ivfpq adc+refine", {"method": "adc+refine"})):
+        route(name, c, c_cpu, **kw)
+    check(out["routes"]["ivfpq adc+refine"]["recall100"] >= out["routes"]["ivfpq adc"]["recall100"],
+          "IVF-PQ: adc+refine below adc")
+    Mc, Ksc, dsc = c.codewords.shape
+    nl = c.coarse_centers.shape[0]
+    c2 = (c.coarse_centers ** 2).sum(1)
+    _, probe = _top_exact(-(c2[None] - 2.0 * (qn @ c.coarse_centers.T)), c.nprobe)
+    slots = int(c.lens[probe].long().sum())
+    probe_args = (c.coarse_centers, c.codewords, c.flat_codes, c.flat_ids, c.offsets, c.lens, qn,
+                  c.rotation, E, c.nprobe, c.seg)
+    op(f"ivf_probe Q={Q_BIG} k={E}", lambda: ivf_mod._ivfpq_search(*probe_args),
+       slots * (Mc + 4) + nl * d * 4 + Mc * Ksc * dsc * 4 + Q_BIG * d * 4 + Q_BIG * E * 16,
+       Q_BIG * nl * d * 2 + Q_BIG * c.nprobe * Mc * Ksc * dsc * 2 + slots * Mc,
+       scanned_slots=slots, seg=c.seg, lists=nl, nprobe=c.nprobe)
+    _, ci, cp = ivf_mod._ivfpq_search(*probe_args)
+    rMr, rKs, rds = c.refine_codewords.shape
+    op(f"refine_rerank ivfpq Q={Q_BIG} E={E}",
+       lambda: ivf_mod._ivfpq_rerank_refine(
+           c.coarse_centers, pq_ops.PQCodebook(c.codewords, c.rotation), c.flat_codes,
+           c.flat_list, pq_ops.PQCodebook(c.refine_codewords, None), c.flat_refine, qn, cp, ci,
+           100),
+       Q_BIG * E * (Mc + rMr + 8 + d * 4) + (Mc * Ksc * dsc + rMr * rKs * rds) * 4,
+       Q_BIG * E * d * 8, E=E)
+    del c, c_cpu
+    torch.cuda.empty_cache()
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def pq_determinism_phase(vecs, dev, card, rows=262_144):
+    """Two card builds from one seed give identical arrays (PQ, IVF-PQ and
+    HNSW-PQ with the device graph builder and the node centroid sums), and
+    streamed PQ builds equal the in-memory build given the same explicit
+    ``train_sample``: normalized rows, OPQ on both levels, refine codes, from
+    device bf16 chunks whose size is not on the build grid (host chunks:
+    the ``cuda`` tests)."""
+    from image_search_engine_for_historical_research_tpu_torch.index import (
+        build_hnsw_pq,
+        build_ivfpq,
+        build_pq,
+    )
+
+    sub = vecs[:rows]
+
+    def arrays(ix):
+        return ix.to_arrays()[1]
+
+    def same(a, b, label):
+        check(set(a) == set(b), f"{label}: array names differ")
+        for k in a:
+            check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                  f"{label}: array {k} differs")
+
+    out = {"rows": rows}
+    t0 = time.perf_counter()
+    same(arrays(build_pq(sub, M=16, Ks=8192, device=dev)),
+         arrays(build_pq(sub, M=16, Ks=8192, device=dev)), "two build_pq from one seed")
+    kw = dict(nlist=316, M=16, Ks=256, nprobe=64, refine_M=32, device=dev)
+    same(arrays(build_ivfpq(sub, **kw)), arrays(build_ivfpq(sub, **kw)),
+         "two build_ivfpq from one seed")
+    out["pq_ivfpq_twice_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # one OPQ round and a 65,536-row fit sample: the checks need no more
+    kw = dict(M=16, Ks=8192, m=16, opq="refine", opq_iters=1, refine_M=32, builder="device",
+              train_sample=65536, device=dev)
+    st = {}
+    same(arrays(build_hnsw_pq(sub, stats=st, **kw)), arrays(build_hnsw_pq(sub, **kw)),
+         "two build_hnsw_pq (device builder) from one seed")
+    out["hnsw_pq_twice_s"], out["hnsw_pq_U"] = time.perf_counter() - t0, st["U"]
+    t0 = time.perf_counter()
+    kw = dict(M=16, Ks=8192, train_sample=65536, refine_M=32, opq=True, opq_iters=1, device=dev)
+    step = 50_000                               # not a multiple of any encode or grid piece
+    stream = build_pq(lambda: (sub[s:s + step] for s in range(0, rows, step)), n=rows, **kw)
+    same(arrays(build_pq(sub, **kw)), arrays(stream),
+         f"streaming build_pq from {step}-row device chunks vs in memory")
+    out["streaming_s"] = time.perf_counter() - t0
+    out["identical"] = True
+    print(f"PQ determinism and streaming at {rows} rows: identical arrays {json.dumps(out)} "
+          f"({card})", flush=True)
+    return out
+
+
+def pq_serving_phase(offline, online, common, argv, paths, dev, card):
+    """``cli.offline`` builds each PQ-family artifact over the served gallery
+    and ``cli.online.make_service`` serves it: 4 WSGI POSTs, one query_batch
+    of the same 4 (equal ids), one query on a CPU service (equal ids), with
+    the PQ ops counted on the card's served path."""
+    from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
+
+    out = {}
+    for method, extra in (("HNSW_NanoPQ", ["--opq", "refine"]), ("IVFPQ", ["--refine-m", "8"]),
+                          ("PQ", [])):
+        t0 = time.perf_counter()
+        check(offline.main(["--datasets", "images,synthetic", "--ifextracted", "--ifgenerate",
+                            "--matching-method", method] + extra + common) == 0,
+              f"cli.offline {method} failed")
+        build_s = time.perf_counter() - t0
+        margv = [("PQ_METHOD" if a == "HNSW" else a) for a in argv]
+        margv[margv.index("PQ_METHOD")] = method
+        svc = online.make_service(online.build_parser().parse_args(margv + ["--device", dev.type]))
+        app = make_wsgi_app(svc)
+        post(app, paths[15])                                 # warm-up, outside the count
+        with CallCounter(pq_targets()) as calls:
+            posted = [post(app, p) for p in paths[:4]]
+            batch = svc.query_batch(paths[:4])
+            torch.cuda.synchronize()
+        ids = [[r["id"] for r in o["results"]] for o in posted]
+        for i, row in enumerate(ids):
+            check(len(row) == 10 and len(set(row)) == 10, f"{method} POST {i}: ids {row}")
+        check([[r["id"] for r in res] for res, _ in batch] == ids,
+              f"{method}: query_batch ids differ from the POSTs'")
+        cpu = online.make_service(online.build_parser().parse_args(margv + ["--device", "cpu"]))
+        cpu_ids = [r["id"] for r in cpu.query_image(paths[0])[0]]
+        cpu.close()
+        check(cpu_ids == ids[0], f"{method}: CPU service ids {cpu_ids}, card {ids[0]}")
+        t = posted[0]["timing"]
+        g = torch.Generator(device=dev).manual_seed(5)
+        qv = unit_rows(torch.randn(1, D, generator=g, device=dev))
+        rec = {"search_trace_q1": trace_op(lambda: svc.index.search(qv, svc.K)),"offline_s": build_s, "kind": type(svc.index).__name__,
+               "search_s": [o["timing"]["search_s"] for o in posted],
+               "rerank_s": t["rerank_s"], "extract_s": t["extract_s"],
+               "batch_search_s": batch[0][1]["search_s"], "op_calls": dict(calls.counts),
+               "rank0_own_image": sum(row[0] == i for i, row in enumerate(ids))}
+        out[method] = rec
+        print(f"PQ serving {method} {' '.join(extra)}: {json.dumps(rec)} ({card})", flush=True)
+        svc.close()
+    return out
 
 
 def cli_phase(rr, tmp, image_paths, ckpt, dev, card):
@@ -1007,6 +1455,11 @@ def main():
     # 3. a device-built HNSW graph at 1M, then diffusion on its rows
     graph_rec, big = graph_phase(bs, dev, flush, card)
     diff_1m = diffusion_1m_phase(big, dev, flush, card)
+    torch.cuda.empty_cache()
+
+    # the PQ family at 1M on the same rows, then determinism and streaming
+    pq_rec = pq_1m_phase(big, dev, flush, card)
+    pq_rec["determinism"] = pq_determinism_phase(big, dev, card)
     del big
     torch.cuda.empty_cache()
 
@@ -1123,6 +1576,8 @@ def main():
         cpu_l2.close()
         svc_l2.close()
 
+        pq_rec["serving"] = pq_serving_phase(offline, online, common, argv, paths, dev, card)
+
         d_launches, coalesce_rec = served_rerank_phase(
             bs, svc, lambda: online.make_service(online.build_parser().parse_args(
                 argv + ["--device", "cpu"])), gallery, paths, tmp, data_root, dev, card)
@@ -1167,6 +1622,7 @@ def main():
                                  "dba": rr["dba"], "kr_6k": rr["kr"], "kr_100k": kr_large,
                                  "diffusion_1m": diff_1m, "coalescing": coalesce_rec,
                                  "clis": cli_rec}}))
+    print(json.dumps({"pq": pq_rec}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

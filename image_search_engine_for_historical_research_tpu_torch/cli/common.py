@@ -2,8 +2,8 @@
 matcher dispatch.
 
 Port of ``image_search_engine_for_historical_research_tpu/cli/common.py``
-(:20-92) for the flags the ported matchers use, plus ``--device``. ``--opq``
-and ``--refine-m`` wait for the PQ family.
+(:20-92), plus ``--device``, and of ``cli/offline.py``'s matcher keyword
+rule (:77-91), which every CLI here shares (``matcher_kwargs``).
 """
 
 from __future__ import annotations
@@ -53,8 +53,21 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--multiscale", default="[1, 2**(1/2), 1/2**(1/2)]",
                         help="python list of scales (reference flag format)")
     parser.add_argument("--matching-method", default="L2",
-                        help="L2 (exact) | HNSW are ported; PQ | ANNOY | PQ_HNSW | "
-                             "IVFPQ | LSH exit naming their ROADMAP item")
+                        help="L2 (exact) | HNSW | PQ | Nano_PQ | PQ_HNSW | HNSW_NanoPQ | "
+                             "IVFPQ are ported; ANNOY | LSH and the rest exit naming "
+                             "their ROADMAP item")
+    parser.add_argument("--opq", nargs="?", const=True, default=False,
+                        choices=[True, False, "refine"],
+                        help="learned orthogonal pre-rotation for PQ-family "
+                             "indexes (OPQ, Ge et al. CVPR'13); '--opq' "
+                             "rotates all code levels, '--opq refine' rotates "
+                             "only the residual level (PQ_HNSW: keeps coarse-"
+                             "code dedup)")
+    parser.add_argument("--refine-m", type=int, default=None, metavar="BYTES",
+                        help="second-level refinement codes per vector for "
+                             "PQ_HNSW / IVFPQ (IVFADC+R): enables the "
+                             "codes-only adc+refine re-rank; default = "
+                             "backend default (PQ_HNSW 32, IVFPQ 0)")
     parser.add_argument("--ifgenerate", action="store_true",
                         help="(re)build index artifacts instead of loading")
     parser.add_argument("--outputs", default="outputs")
@@ -87,10 +100,17 @@ def dispatch_matcher(method: str, *args, **kwargs):
 
 
 def matcher_kwargs(args, dataset: str) -> dict:
-    """The matcher's keyword arguments from the CLI flags: the device, and
-    for an index with an artifact its name, ``--ifgenerate`` and
-    ``--outputs``."""
+    """The matcher's keyword arguments from the CLI flags: the device; for
+    an index with an artifact its name, ``--ifgenerate`` and ``--outputs``;
+    for the PQ family ``--opq``, and ``--refine-m`` when it is given."""
+    from ..index.matchers import PQ_METHODS
+
     if args.matching_method == "L2":
         return {"device": args.device}
-    return {"dataset": dataset, "ifgenerate": args.ifgenerate, "outputs": args.outputs,
-            "device": args.device}
+    kw = {"dataset": dataset, "ifgenerate": args.ifgenerate, "outputs": args.outputs,
+          "device": args.device}
+    if args.matching_method in PQ_METHODS:
+        kw["opq"] = args.opq
+        if args.refine_m is not None:
+            kw["refine_M"] = args.refine_m
+    return kw

@@ -2,8 +2,10 @@
 
 Port of ``image_search_engine_for_historical_research_tpu/cli/online.py`` for
 ``--matching-method L2`` (a ``FlatIndex`` over the stored features, built at
-start-up) and ``HNSW`` (the artifact ``cli.offline`` wrote). Other matching
-methods exit with the ROADMAP item that ports them. ``--coalesce MAX_BATCH``
+start-up), ``HNSW`` and the PQ family (``PQ``/``Nano_PQ``, ``PQ_HNSW``/
+``HNSW_NanoPQ``, ``IVFPQ``: the artifact ``cli.offline`` wrote, by the JAX
+package's kind map). Other matching methods exit with the ROADMAP item that
+ports them. ``--coalesce MAX_BATCH``
 puts ``serving.batching.CoalescingService`` in front of the service and
 serves on a threaded server.
 
@@ -57,10 +59,14 @@ def make_service(args) -> SearchService:
     vecs = np.concatenate(vecs_l, axis=0)
     if args.matching_method == "L2":
         index = build_flat(vecs, device=args.device)
-    else:  # HNSW
+    else:
         name = "_".join(d.replace("/", "_") for d in datasets)
-        index = load_index(f"{args.outputs}/{name}/hnsw", device=args.device)
-        if index.device.type == "cuda":
+        kind = {
+            "PQ": "pq", "Nano_PQ": "pq", "HNSW": "hnsw",
+            "PQ_HNSW": "hnsw_pq", "HNSW_NanoPQ": "hnsw_pq", "IVFPQ": "ivfpq",
+        }[args.matching_method]
+        index = load_index(f"{args.outputs}/{name}/{kind}", device=args.device)
+        if kind == "hnsw" and index.device.type == "cuda":
             try:  # refuse a K the kernel cannot serve now, not on every query
                 check_ef(max(index.ef_default, args.K))
             except ValueError as e:

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Type
+import time
+from typing import Dict, Optional, Type
 
 import numpy as np
 import torch
@@ -70,3 +71,21 @@ def normalize_rows(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """Row L2 normalization (``x / ||x||``, or ``x / (||x|| + eps)``)."""
     n = torch.linalg.vector_norm(x, dim=1, keepdim=True)
     return x / (n + eps) if eps else x / n.clamp(min=1e-30)
+
+
+class StageClock:
+    """Stage seconds of a build into ``stats`` (host clock after a device
+    synchronize, so each stage's device work is inside it); does nothing
+    when ``stats`` is None."""
+
+    def __init__(self, stats: Optional[dict], device: torch.device):
+        self.stats, self.device, self.t = stats, device, time.perf_counter()
+
+    def tick(self, stage: str) -> None:
+        if self.stats is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.stats[stage] = self.stats.get(stage, 0.0) + t - self.t
+        self.t = t

@@ -12,10 +12,17 @@ so every query follows exactly its own per-query trajectory. Sorts are stable
 wherever the JAX package uses ``jnp.argsort`` (stable): the order of ids in
 the beam, ``INF`` slots included, depends on it.
 
-Distances are squared L2 in f32; scores are their negation. The PQ walks
-(:237-405) are not ported yet. The at-scale level-0 search is the CUDA
-kernel (``ops.beam_search``); this traversal is the JAX package's default
-route, ``HNSWIndex.search(use_kernel=False)``.
+Distances are squared L2 in f32; scores are their negation. The at-scale
+level-0 search over raw vectors is the CUDA kernel (``ops.beam_search``);
+this traversal is the JAX package's default route,
+``HNSWIndex.search(use_kernel=False)``.
+
+The PQ walks (:31-35, :237-408: ``_adc``, ``hnsw_search_batch_pq`` and
+``hnsw_search_batch_pq_centroid`` with their coarse seeds) run the same
+traversal with an ADC distance factory: a node's distance is the sum of its
+code's LUT entries, added over m = 0..M-1 in order (``_adc`` is
+``ops.pq.adc``, the ADC of the flat scan and the IVF probe). Their coarse seeds are a
+``_top_exact`` (the lowest ids among equal ADC distances, as ``lax.top_k``).
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .topk import _top
+from .pq import PQCodebook, codes_long, pq_dist_table, pq_ip_table
+from .pq import adc as _adc
+from .topk import _top, _top_exact
 
 INF = float("inf")
 
@@ -129,12 +138,14 @@ def _beam_search_l0(dist_to, nbr0, entries, entry_ds, N, ef, max_steps):
 def make_hnsw_search(node_dist_factory: Callable):
     """A batched HNSW search given a distance factory:
     ``node_dist_factory(ctx) -> dist_to``, where ``ctx`` holds one row per
-    query (the raw queries for L2) and ``dist_to(ids (Q, m)) -> (Q, m)``."""
+    query (the raw queries for L2, the LUTs for PQ, a tuple of LUTs for the
+    centroid walk) and ``dist_to(ids (Q, m)) -> (Q, m)``."""
 
     def search_all(ctx, nbr0, nbru, entry, k, ef, max_steps, N, seeds=None):
         dist_to = node_dist_factory(ctx)
         dev = nbr0.device
-        point, pd = _descend(dist_to, nbru, entry, ctx.shape[0], dev)
+        Q = (ctx[0] if isinstance(ctx, tuple) else ctx).shape[0]
+        point, pd = _descend(dist_to, nbru, entry, Q, dev)
 
         if seeds is None:
             entries, entry_ds = point[:, None], pd[:, None]
@@ -194,6 +205,119 @@ def _l2_coarse_seeds(queries, vectors, coarse_ids, n_seeds):
 def _l2_search_all(queries, vectors, nbr0, nbru, seeds_all, *, entry, k, ef, max_steps, N):
     search_all = make_hnsw_search(_l2_dist_factory(vectors))
     return search_all(queries, nbr0, nbru, entry, k, ef, max_steps, N, seeds_all)
+
+
+def hnsw_search_batch_pq(
+    codes: torch.Tensor,       # (N, M) codes
+    codewords: torch.Tensor,   # (M, Ks, ds)
+    nbr0: torch.Tensor,
+    nbru: torch.Tensor,
+    entry: int,
+    queries: torch.Tensor,
+    k: int,
+    ef: int,
+    max_steps: int = 0,
+    coarse_ids: Optional[torch.Tensor] = None,
+    n_seeds: int = 4,
+):
+    """ADC-distance batched HNSW search over PQ codes; returns ``(scores
+    (Q, k), ids (Q, k) int32)``. With ``coarse_ids`` one ADC scan over the
+    coarse nodes seeds each beam with its best ``n_seeds``."""
+    N = codes.shape[0]
+    ef = max(ef, k)
+    max_steps = max_steps or 4 * ef
+    luts = pq_dist_table(PQCodebook(codewords), queries).contiguous()    # (Q, M, Ks)
+    codes64 = codes_long(codes)
+    seeds_all = None
+    if coarse_ids is not None and coarse_ids.shape[0] > 0:
+        ns = min(n_seeds, coarse_ids.shape[0])
+        seeds_all = _pq_coarse_seeds(luts, codes64, coarse_ids, ns)
+    ids, scores = _pq_search_all(luts, codes64, nbr0, nbru, seeds_all, entry=int(entry), k=k,
+                                 ef=ef, max_steps=max_steps, N=N)
+    return scores, ids
+
+
+def _pq_coarse_seeds(luts, codes64, coarse_ids, n_seeds):
+    dc = _adc(luts, codes64[coarse_ids.long()])                 # (Q, C)
+    _, top = _top_exact(-dc, n_seeds)
+    return coarse_ids[top]
+
+
+def _pq_search_all(luts, codes64, nbr0, nbru, seeds_all, *, entry, k, ef, max_steps, N):
+    def factory(lut):
+        def dist_to(ids):
+            return torch.where(ids >= 0, _adc(lut, codes64[ids.clamp(min=0).long()]), INF)
+
+        return dist_to
+
+    search_all = make_hnsw_search(factory)
+    return search_all(luts, nbr0, nbru, entry, k, ef, max_steps, N, seeds_all)
+
+
+def hnsw_search_batch_pq_centroid(
+    codes: torch.Tensor,          # (N, M) coarse codes
+    codewords: torch.Tensor,      # (M, Ks, ds)
+    node_codes: torch.Tensor,     # (N, Mr) centroid refine codes
+    node_codewords: torch.Tensor,  # (Mr, Ksr, dsr)
+    node_norm2: torch.Tensor,     # (N,) ||centroid||^2
+    nbr0: torch.Tensor,
+    nbru: torch.Tensor,
+    entry: int,
+    queries: torch.Tensor,
+    k: int,
+    ef: int,
+    max_steps: int = 0,
+    coarse_ids: Optional[torch.Tensor] = None,
+    n_seeds: int = 4,
+    rotation: Optional[torch.Tensor] = None,
+    node_rotation: Optional[torch.Tensor] = None,
+):
+    """Centroid-ADC beam search over a two-level code graph: a node's
+    distance is the exact squared distance to its members' centroid
+    ``x_u = decode(coarse_u) + decode(node_refine_u)`` up to ``||q||^2``,
+    ``node_norm2[u] - 2 (q.c_u + q.r_u)``, from two inner-product LUTs and
+    the stored norm."""
+    N = codes.shape[0]
+    ef = max(ef, k)
+    max_steps = max_steps or 4 * ef
+    lutc = pq_ip_table(PQCodebook(codewords, rotation), queries).contiguous()
+    lutr = pq_ip_table(PQCodebook(node_codewords, node_rotation), queries).contiguous()
+    codes64 = codes_long(codes)
+    ncodes64 = codes_long(node_codes)
+    norm2 = node_norm2.float()
+    seeds_all = None
+    if coarse_ids is not None and coarse_ids.shape[0] > 0:
+        ns = min(n_seeds, coarse_ids.shape[0])
+        seeds_all = _pq2_coarse_seeds(lutc, lutr, codes64, ncodes64, norm2, coarse_ids, ns)
+    ids, scores = _pq2_search_all(lutc, lutr, codes64, ncodes64, norm2, nbr0, nbru, seeds_all,
+                                  entry=int(entry), k=k, ef=ef, max_steps=max_steps, N=N)
+    return scores, ids
+
+
+def _pq2_dist(lc, lr, codes64, ncodes64, norm2, ids):
+    safe = ids.clamp(min=0).long()
+    return norm2[safe] - 2.0 * (_adc(lc, codes64[safe]) + _adc(lr, ncodes64[safe]))
+
+
+def _pq2_coarse_seeds(lutc, lutr, codes64, ncodes64, norm2, coarse_ids, n_seeds):
+    ids = coarse_ids.long()[None].expand(lutc.shape[0], -1)
+    dc = _pq2_dist(lutc, lutr, codes64, ncodes64, norm2, ids)   # (Q, C)
+    _, top = _top_exact(-dc, n_seeds)
+    return coarse_ids[top]
+
+
+def _pq2_search_all(lutc, lutr, codes64, ncodes64, norm2, nbr0, nbru, seeds_all, *, entry, k,
+                    ef, max_steps, N):
+    def factory(ctx):
+        lc, lr = ctx
+
+        def dist_to(ids):
+            return torch.where(ids >= 0, _pq2_dist(lc, lr, codes64, ncodes64, norm2, ids), INF)
+
+        return dist_to
+
+    search_all = make_hnsw_search(factory)
+    return search_all((lutc, lutr), nbr0, nbru, entry, k, ef, max_steps, N, seeds_all)
 
 
 def hnsw_descend_entries(

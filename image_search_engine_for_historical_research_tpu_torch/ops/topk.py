@@ -87,7 +87,7 @@ def _top_exact(s: torch.Tensor, k: int):
     """``lax.top_k`` including which of several ids tied at the k-th score
     are selected (the lowest): the head of a stable descending sort. For
     score rows with many equal values, such as the zeros of a dense
-    diffusion score row."""
+    diffusion score row or the ADC scores of rows that share a PQ code."""
     v, i = torch.sort(s, dim=1, descending=True, stable=True)
     return v[:, :k], i[:, :k]
 

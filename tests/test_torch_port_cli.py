@@ -1,7 +1,7 @@
-"""The offline, online (L2), benchmark, test_reranking, test_custom and
-retrieve CLIs of the port against the JAX package's: the same JPEGs and
-checkpoint, the same feature stores and index artifacts read by both
-packages, the same ids and the same mAP."""
+"""The offline, online (L2 and the PQ family), benchmark, test_reranking,
+test_custom and retrieve CLIs of the port against the JAX package's: the
+same JPEGs and checkpoint, the same feature stores and index artifacts read
+by both packages, the same ids and the same mAP."""
 
 import os
 import pickle
@@ -53,9 +53,11 @@ from image_search_engine_for_historical_research_tpu_torch.index import HNSWInde
 from image_search_engine_for_historical_research_tpu_torch.models import from_flax_variables
 from torch_port_helpers import (  # noqa: F401  (one_torch_thread is a fixture)
     ONE_BLOCK,
+    assert_same_arrays,
     one_block_arch,
     one_torch_thread,
     perturbed_variables,
+    substitute_jax_fits,
     write_images,
 )
 
@@ -289,7 +291,147 @@ def test_custom_map_and_saved_ranks_match_jax(collection, tmp_path, monkeypatch,
 @pytest.mark.parametrize("cli", ["offline", "benchmark"])
 def test_unported_matching_method_exits_at_start(cli, tmp_path):
     argv = ["--datasets", "coll", "--data-root", str(tmp_path), "--device", "cpu",
-            "--matching-method", "IVFPQ"]
+            "--matching-method", "L2_int8"]
     main = t_offline.main if cli == "offline" else t_benchmark.main
-    with pytest.raises(SystemExit, match="PQ family"):
+    with pytest.raises(SystemExit, match="remaining matchers"):
         main(argv)
+
+
+def _pq_stores(root, collection_root):
+    """The JAX offline CLI's ``coll`` store and 250 clustered rows
+    (``synth``), written under ``<root>/jax`` and ``<root>/torch``."""
+    vecs, rel = j_load_features("coll", root=str(collection_root / "jax_out"))
+    rng = np.random.default_rng(12)
+    centers = rng.standard_normal((12, 2048))
+    synth = centers[rng.integers(0, 12, 250)] + 0.3 * rng.standard_normal((250, 2048))
+    synth = (synth / np.linalg.norm(synth, axis=1, keepdims=True)).astype(np.float32)
+    for side in ("jax", "torch"):
+        save_path_feature("coll", vecs, rel, root=str(root / side))
+        save_path_feature("synth", synth, [f"synth/{i}" for i in range(250)],
+                          root=str(root / side))
+
+
+@pytest.mark.parametrize("method, kind, extra", [
+    ("HNSW_NanoPQ", "hnsw_pq", []),
+    ("IVFPQ", "ivfpq", ["--refine-m", "8"]),
+    ("PQ", "pq", ["--refine-m", "8"]),
+])
+def test_pq_family_offline_and_online_match_jax(collection, tmp_path, monkeypatch, method, kind,
+                                                extra):
+    """``cli.offline --ifextracted --ifgenerate`` builds the same artifact as
+    the JAX CLI (JAX's fits substituted at the port's seams), and
+    ``cli.online`` serves the JAX service's ids from it."""
+    root, data, paths, common = collection
+    substitute_jax_fits(monkeypatch)
+    _pq_stores(tmp_path, root)
+    argv = ["--datasets", "coll,synth", "--ifextracted", "--ifgenerate", "--matching-method",
+            method] + extra + common
+    assert j_offline.main(argv + ["--outputs", str(tmp_path / "jax")]) == 0
+    assert t_offline.main(argv + ["--outputs", str(tmp_path / "torch"), "--device", "cpu"]) == 0
+    jarr = j_load_index(str(tmp_path / "jax" / "coll_synth" / kind)).to_arrays()[1]
+    tix = load_index(str(tmp_path / "torch" / "coll_synth" / kind), device="cpu")
+    tarr = tix.to_arrays()[1]
+    # each package normalizes the rows itself (last bits differ), and the
+    # residual level re-encodes 260 rows with 256 words a subspace, whose
+    # nearly equal words decide a few boundary codes either way
+    fuzzy = ("refine_codes", "node_codes", "node_norm2")
+    assert_same_arrays(jarr, tarr, skip=fuzzy)
+    for name in set(fuzzy[:2]) & set(jarr):
+        assert np.mean(jarr[name] != tarr[name]) <= 0.01, name
+    if "node_norm2" in jarr:
+        same = (jarr["node_codes"] == tarr["node_codes"]).all(1)
+        np.testing.assert_allclose(tarr["node_norm2"][same], jarr["node_norm2"][same], rtol=0,
+                                   atol=1e-5)
+    assert jarr.get("refine_codes", jarr.get("flat_refine")).shape[1] == (
+        32 if kind == "hnsw_pq" else 8)
+
+    sargv = ["--datasets", "coll,synth", "--matching-method", method, "--K", str(K)] + common
+    with one_block_arch():
+        jsvc = j_online.make_service(j_online.build_parser().parse_args(
+            sargv + ["--outputs", str(tmp_path / "jax")]))
+        tsvc = t_online.make_service(t_online.build_parser().parse_args(
+            sargv + ["--outputs", str(tmp_path / "torch"), "--device", "cpu"]))
+        try:
+            assert type(tsvc.index).__name__ == type(jsvc.index).__name__
+            for p in paths[:3]:
+                assert ([r["id"] for r in tsvc.query_image(p)[0]]
+                        == [r["id"] for r in jsvc.query_image(p)[0]]), p
+            batch = tsvc.query_batch(paths[3:5])
+            assert [[r["id"] for r in res] for res, _ in batch] == [
+                [r["id"] for r in jsvc.query_image(p)[0]] for p in paths[3:5]]
+        finally:
+            tsvc.close()
+
+
+def test_refine_m_reaches_hnsw_nanopq(collection, tmp_path):
+    """The JAX ``cli.offline`` passes ``refine_M=`` to a matcher without that
+    parameter and dies; the port builds the index with the flag's value."""
+    root, data, _, common = collection
+    _pq_stores(tmp_path, root)
+    base = ["--datasets", "coll,synth", "--ifextracted", "--ifgenerate", "--matching-method",
+            "HNSW_NanoPQ"] + common
+    with pytest.raises(TypeError, match="refine_M"):
+        j_offline.main(base + ["--refine-m", "16", "--outputs", str(tmp_path / "jax")])
+    targv = base + ["--outputs", str(tmp_path / "torch"), "--device", "cpu"]
+    art = str(tmp_path / "torch" / "coll_synth" / "hnsw_pq")
+    for extra, width in ((["--refine-m", "16"], 16), ([], 32)):
+        assert t_offline.main(targv + extra) == 0
+        ix = load_index(art, device="cpu")
+        assert ix.refine_codes.shape == (ix.n, width)
+
+
+@pytest.mark.parametrize("method, flags", [
+    ("PQ", ["--opq"]), ("Nano_PQ", ["--refine-m", "4"]), ("PQ_HNSW", ["--opq", "refine"]),
+    ("HNSW_NanoPQ", ["--refine-m", "8"]), ("IVFPQ", ["--opq", "--refine-m", "4"]),
+])
+def test_pq_methods_through_benchmark_and_test_reranking(tmp_path, method, flags):
+    """Each PQ-family method (with its flags) through ``cli.benchmark`` and
+    ``cli.test_reranking`` on stored features: valid revisited mAP, the
+    flags in the artifact, and the benchmark's ranks equal the matcher's."""
+    from image_search_engine_for_historical_research_tpu_torch.index.matchers import MATCHERS
+
+    db, q, gnd, argv = _revisited(tmp_path)
+    out = t_benchmark.run(t_benchmark.build_parser().parse_args(
+        argv + ["--matching-method", method, "--ifgenerate"] + flags))["roxford5k"]
+    assert out["ranks"].shape == (len(q), len(db))
+    for row in out["ranks"]:          # IVF leaves unprobed rows out (-1), as FAISS does
+        valid = row[row >= 0]
+        assert len(set(valid.tolist())) == len(valid) and (method == "IVFPQ"
+                                                           or len(valid) == len(db))
+    for key in ("mapE", "mapM", "mapH"):
+        assert 0.0 <= getattr(out["map"], key) <= 1.0 + 1e-9
+    kind = {"PQ": "pq", "Nano_PQ": "pq", "IVFPQ": "ivfpq"}.get(method, "hnsw_pq")
+    ix = load_index(str(tmp_path / "rout" / "roxford5k" / kind), device="cpu")
+    arrays = ix.to_arrays()[1]
+    if "--opq" in flags:
+        assert "rotation" in arrays or "refine_rotation" in arrays
+    if "--refine-m" in flags:
+        m = int(flags[flags.index("--refine-m") + 1])
+        assert arrays.get("refine_codes", arrays.get("flat_refine")).shape[1] == m
+    ranks, _ = MATCHERS[method](len(db), db, q, "roxford5k", ifgenerate=False,
+                                outputs=str(tmp_path / "rout"), device="cpu")
+    np.testing.assert_array_equal(out["ranks"], ranks)
+    res = t_test_reranking.run(t_test_reranking.build_parser().parse_args(
+        ["--dataset", "roxford5k", "--data-root", str(tmp_path / "rdata"), "--outputs",
+         str(tmp_path / "rout"), "--device", "cpu", "--methods", "aqe", "--matching-method",
+         method] + flags))
+    assert res["baseline"].mapE == out["map"].mapE and 0.0 <= res["aqe"].mapE <= 1.0 + 1e-9
+
+
+@pytest.mark.parametrize("method", ["Nano_PQ", "HNSW_NanoPQ", "IVFPQ"])
+def test_pq_methods_through_test_custom(collection, tmp_path, method):
+    """``cli.test_custom`` with a PQ-family method: each query's own copy in
+    the gallery at rank 0."""
+    root, data, paths, common = collection
+    folders = tmp_path / "folders"
+    for split, part in (("db", paths), ("q", paths[:3])):
+        for i, src in enumerate(part):
+            label = folders / split / f"label{i % 3}"
+            label.mkdir(parents=True, exist_ok=True)
+            (label / os.path.basename(src)).write_bytes(open(src, "rb").read())
+    args = ["--db-dir", str(folders / "db"), "--query-dir", str(folders / "q"), "--K", "4",
+            "--matching-method", method, "--refine-m", "8", "--outputs", str(tmp_path / "out"),
+            "--device", "cpu"] + [a for a in common if a not in ("--data-root", str(data))]
+    with one_block_arch():
+        res = t_test_custom.run(t_test_custom.build_parser().parse_args(args))
+    assert res["ranks"].shape == (3, 4) and 0.0 < res["map"] <= 1.0

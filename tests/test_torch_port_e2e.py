@@ -138,7 +138,7 @@ def test_wsgi_post_returns_same_ids(services):
 
 @pytest.mark.parametrize("extra, match", [
     (["--matching-method", "ANNOY"], "remaining matchers"),
-    (["--matching-method", "IVFPQ"], "PQ family"),
+    (["--matching-method", "L2_int8"], "remaining matchers"),
 ])
 def test_unported_matching_methods_exit(services, extra, match):
     *_, argv = services

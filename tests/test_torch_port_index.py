@@ -81,9 +81,9 @@ def test_unported_kind_raises(tmp_path):
     import json
     import os
 
-    os.makedirs(tmp_path / "pq")
-    with open(tmp_path / "pq" / "manifest.json", "w") as f:
-        json.dump({"format_version": 1, "kind": "pq", "meta": {}}, f)
-    np.savez(tmp_path / "pq" / "arrays.npz", x=np.zeros(1))
+    os.makedirs(tmp_path / "rpforest")
+    with open(tmp_path / "rpforest" / "manifest.json", "w") as f:
+        json.dump({"format_version": 1, "kind": "rpforest", "meta": {}}, f)
+    np.savez(tmp_path / "rpforest" / "arrays.npz", x=np.zeros(1))
     with pytest.raises(ValueError, match="not ported"):
-        load_index(str(tmp_path / "pq"), device="cpu")
+        load_index(str(tmp_path / "rpforest"), device="cpu")

@@ -18,7 +18,7 @@ _CPU_PATH = f"""
 import sys
 import numpy as np, torch
 from {PKG}.cli import benchmark, offline, online
-from {PKG}.index import build_flat, build_hnsw, build_hnsw_device
+from {PKG}.index import build_flat, build_hnsw, build_hnsw_device, build_hnsw_pq, build_ivfpq, build_pq
 from {PKG}.models import init_network, multiscale_descriptor
 from {PKG}.serving import SearchService
 
@@ -33,6 +33,13 @@ assert ids.shape == (1, 3)
 flat = build_flat(np.random.default_rng(1).standard_normal((50, 2048)), device="cpu")
 _, ids = flat.search(v, 3)
 assert ids.shape == (1, 3)
+rows = np.random.default_rng(2).standard_normal((60, 2048)).astype(np.float32)
+for pq_ix in (build_pq(rows, M=16, Ks=16, iters=2, refine_M=8, device="cpu"),
+              build_hnsw_pq(rows, M=16, Ks=16, iters=2, refine_M=8, opq="refine", opq_iters=1,
+                            device="cpu"),
+              build_ivfpq(rows, nlist=4, M=16, Ks=16, nprobe=2, iters=2, device="cpu")):
+    _, ids = pq_ix.search(v, 3)
+    assert ids.shape == (1, 3)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "{JAX_PKG}"]
 assert not bad, bad
@@ -89,6 +96,9 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         build_flat,
         build_hnsw,
         build_hnsw_device,
+        build_hnsw_pq,
+        build_ivfpq,
+        build_pq,
         load_index,
     )
     from image_search_engine_for_historical_research_tpu_torch.models import init_network
@@ -99,7 +109,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         init_network()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         common.load_network()
-    for build in (build_hnsw, build_hnsw_device, build_flat):
+    for build in (build_hnsw, build_hnsw_device, build_flat, build_pq, build_hnsw_pq,
+                  build_ivfpq):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build(np.ones((4, 8), np.float32))
     for cli in (offline.main, benchmark.main):
@@ -109,7 +120,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         load_index(str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SearchService(None, None, np.zeros((1, 8)), ["a"])
-    args = online.build_parser().parse_args(["--datasets", "db", "--matching-method", "HNSW"])
-    assert args.device == "cuda"
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        online.make_service(args)
+    for method in ("HNSW", "HNSW_NanoPQ", "IVFPQ", "PQ"):
+        args = online.build_parser().parse_args(["--datasets", "db", "--matching-method", method])
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            online.make_service(args)

@@ -84,6 +84,46 @@ def _ids(results):
     return [r["id"] for r in results]
 
 
+@pytest.mark.parametrize("kind", ["pq", "hnsw_pq", "ivfpq"])
+def test_pq_family_services_match_jax(services, tmp_path, kind):
+    """A JAX-built PQ, HNSW-PQ or IVF-PQ artifact (refine codes, so each
+    searches ``adc+refine``) served by both packages with qge1: the same ids
+    through ``query_image``, ``query_batch`` and a WSGI POST."""
+    from image_search_engine_for_historical_research_tpu import index as jindex
+    from image_search_engine_for_historical_research_tpu.serving.app import (
+        SearchService as JSearchService,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.index import load_index
+
+    jsvc, base, _, q_paths, _ = services
+    build = {"pq": lambda v: jindex.build_pq(v, M=16, Ks=64, iters=4, refine_M=16),
+             "hnsw_pq": lambda v: jindex.build_hnsw_pq(v, M=16, Ks=64, iters=4, refine_M=16,
+                                                       opq="refine", opq_iters=2),
+             "ivfpq": lambda v: jindex.build_ivfpq(v, nlist=12, M=16, Ks=32, nprobe=6, iters=4,
+                                                   refine_M=16)}[kind]
+    jix = build(jsvc.vecs)
+    jindex.save_index(jix, str(tmp_path / kind))
+    tix = load_index(str(tmp_path / kind), device="cpu")
+    jpq_svc = JSearchService(jsvc.model, jix, jsvc.vecs, jsvc.paths, K=K, scales=jsvc.scales,
+                             image_size=96)
+    tpq_svc = type(base)(base.model, tix, base.vecs, base.paths, K=K, scales=base.scales,
+                         image_size=96, device="cpu")
+    try:
+        single = [_ids(tpq_svc.query_image(p)[0]) for p in q_paths]
+        assert single == [_ids(jpq_svc.query_image(p)[0]) for p in q_paths]
+        assert [_ids(r) for r, _ in tpq_svc.query_batch(q_paths)] == single
+        app = make_wsgi_app(tpq_svc)
+        payload = open(q_paths[0], "rb").read()
+        status = {}
+        body = b"".join(app({"REQUEST_METHOD": "POST", "CONTENT_TYPE": "image/jpeg",
+                             "CONTENT_LENGTH": str(len(payload)),
+                             "wsgi.input": io.BytesIO(payload), "HTTP_ACCEPT": "application/json"},
+                            lambda st, h: status.setdefault("s", st)))
+        assert status["s"] == "200 OK" and _ids(json.loads(body)["results"]) == single[0]
+    finally:
+        tpq_svc.close()
+
+
 def test_diffusion_query_image_and_batch_match_jax(services):
     jsvc, _, tsvc, q_paths, _ = services
     single = []

@@ -122,3 +122,92 @@ def assert_beams_in_order(s_ref, i_ref, s_got, i_got, atol=0.0):
     np.testing.assert_array_equal(np.asarray(i_got), np.asarray(i_ref))
     np.testing.assert_allclose(np.asarray(s_got), np.asarray(s_ref), rtol=0, atol=atol)
 
+
+
+def clustered_rows(n=1500, d=64, n_centers=48, spread=0.1, seed=0):
+    """Unit rows around ``n_centers`` tight centres: k-means boundaries fall
+    between clusters, so rounding differences between the packages cannot
+    flip an assignment."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32)
+    x = centers[rng.integers(0, n_centers, n)] + spread * rng.standard_normal((n, d))
+    x = x.astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def substitute_jax_fits(monkeypatch):
+    """Route every fit that draws randomness in the port's PQ family through
+    the JAX package's own: the per-subspace k-means of ``ops.pq``, OPQ's
+    training in the builders (``index.pq.fit_and_encode`` for PQ and
+    HNSW-PQ, ``index.ivfpq``), and IVF's training sample and coarse fit.
+    Everything downstream of the fits is then the port's own code."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from image_search_engine_for_historical_research_tpu.ops import kmeans as jkm
+    from image_search_engine_for_historical_research_tpu.ops import pq as jpq
+    from image_search_engine_for_historical_research_tpu_torch.index import ivfpq as tivf
+    from image_search_engine_for_historical_research_tpu_torch.index import pq as tipq
+    from image_search_engine_for_historical_research_tpu_torch.ops import pq as tpq
+
+    def subspace_fit(sub, Ks, iters, seed, m, M, matmul_dtype=None, init="kmeans++"):
+        key = jax.random.split(jax.random.PRNGKey(seed), M)[m]
+        c, _ = jkm.kmeans_fit(jnp.asarray(sub.cpu().numpy()), Ks, iters, key, init=init,
+                              matmul_dtype=None if matmul_dtype is None else jnp.bfloat16)
+        return torch.as_tensor(np.asarray(c), device=sub.device)
+
+    def opq_train(vecs, M=16, Ks=256, iters=20, opq_iters=10, seed=42, train_sample=None):
+        cb = jpq.opq_train(jnp.asarray(vecs.cpu().numpy()), M=M, Ks=Ks, iters=iters,
+                           opq_iters=opq_iters, seed=seed, train_sample=train_sample)
+        return tpq.PQCodebook.from_numpy(cb.codewords, cb.rotation, device=vecs.device)
+
+    def train_sample(N, n_train, seed):
+        return np.asarray(jax.random.choice(jax.random.PRNGKey(seed), N, shape=(n_train,),
+                                            replace=False))
+
+    def coarse_fit(sample, nlist, iters, seed):
+        c, _ = jkm.kmeans_fit(jnp.asarray(sample.cpu().numpy()), nlist, iters,
+                              jax.random.PRNGKey(seed))
+        return torch.as_tensor(np.asarray(c), device=sample.device)
+
+    monkeypatch.setattr(tpq, "_subspace_fit", subspace_fit)
+    for mod in (tipq, tivf):
+        monkeypatch.setattr(mod, "opq_train", opq_train)
+    monkeypatch.setattr(tivf, "_train_sample", train_sample)
+    monkeypatch.setattr(tivf, "_coarse_fit", coarse_fit)
+
+
+def assert_same_arrays(ref: dict, got: dict, atol=1e-5, skip=()):
+    """Two artifacts' arrays: the same names, dtypes and shapes; floats
+    within ``atol``, integers equal."""
+    assert set(ref) == set(got), set(ref) ^ set(got)
+    for name in ref:
+        if name in skip:
+            continue
+        a, b = np.asarray(ref[name]), np.asarray(got[name])
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), (name, a.dtype, b.dtype, a.shape,
+                                                          b.shape)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def assert_same_ranks(s_ref, i_ref, s_got, i_got, tie=1e-5):
+    """The same scores rank by rank (``tie``, relative), and the same ids
+    except where an id's score ties (within ``tie``) with a neighbouring
+    rank's, or sits at the last rank, where a tie may reach past the list."""
+    s_ref, i_ref = np.asarray(s_ref, np.float64), np.asarray(i_ref)
+    s_got, i_got = np.asarray(s_got, np.float64), np.asarray(i_got)
+    assert i_ref.shape == i_got.shape
+    with np.errstate(invalid="ignore"):
+        scale = np.where(np.isfinite(s_ref), np.maximum(np.abs(s_ref), 1.0), 1.0)
+        diff = np.where(s_got == s_ref, 0.0, np.abs(s_got - s_ref))
+    np.testing.assert_array_less(diff, tie * scale + 1e-12)
+    k = i_ref.shape[1]
+    for r, p in zip(*np.nonzero(i_ref != i_got)):
+        near = [j for j in (p - 1, p + 1) if 0 <= j < k]
+        tied = any(s_ref[r, j] == s_ref[r, p] or abs(s_ref[r, j] - s_ref[r, p]) <= tie * scale[r, p]
+                   for j in near)
+        assert tied or p == k - 1, (r, p, i_ref[r, p], i_got[r, p], s_ref[r])
