@@ -44,7 +44,7 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    relative); ``adc+refine`` recall@100 at least ``adc``'s; the device ops
    (ADC scan, IVF probe, both refine re-ranks, both PQ walks, the encode
    pass) timed beside their bounds, and the host expansion timed alone.
-   Then at 262,144 of the rows: two builds of ``build_pq`` and of
+   Then at 131,072 of the rows: two builds of ``build_pq`` and of
    ``build_ivfpq`` from one seed give identical arrays, and a streaming
    ``build_pq`` from device-tensor chunks equals the in-memory build.
 4. The global re-rankers at rParis6k's shape: 6,322 x 2048 clustered unit
@@ -84,7 +84,27 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    and ``PQ`` over both stores, each served by ``cli.online.make_service``:
    4 WSGI POSTs and a ``query_batch`` of the same 4 (equal ids), one query on
    a CPU service from the same artifact (equal ids), the PQ ops' calls
-   counted on the served path.
+   counted on the served path. Then the remaining matchers (``L2_int8``,
+   ``fractional``, ``LSH``, ``ANNOY``, ``Greedyhash``) through ``cli.offline
+   --loader pil`` over both stores, and ``cli.online --matching-method
+   ANNOY``: 4 WSGI POSTs whose ids equal a CPU-built service's. Then a
+   regional (Rpool over GeM) and an R-MAC ResNet101-SOLAR at full width
+   extract the 16 JPEGs one image at a time; 2 are held against the CPU at
+   1e-4.
+   Then the remaining matchers on the same 1M rows: ``build_rpforest(
+   n_trees=100, leaf_size=512)``, ``build_flat_i8`` with and without its
+   bf16 re-rank copy, LSH codes at 512 bits, Greedyhash-style codes (the
+   signs of a seeded projection to 512 bits), PQ_Net over ``pq_train``
+   codewords (M=16, Ks=256) and PQ_Net_bucket (10 buckets), and the
+   fractional distance on the first 100,000 rows: build seconds and peak
+   memory, recall@10/@100 against the exact top-100, ms at Q=70 and Q=1
+   beside each search's bound, a ``trace_op`` trace, and 8 queries' ids
+   against a CPU run of the same arrays (equal but at ties). Then HNSW
+   above the largest N whose visited bitset fits in shared memory: a random
+   1,787,777-row bf16 table searched through ``HNSWIndex.search`` (one
+   launch, the bitset in device memory), the kernel held against its plain
+   version at Q=70 and timed beside one row fewer (bitset in shared
+   memory).
 6. The CLIs on stored features: phase 4's rows and gnd as a ``rparis6k``
    feature store and gnd pickle; ``cli.benchmark --ifextracted --qge``
    (alphaQE + diffusion), ``cli.test_reranking --methods
@@ -100,7 +120,8 @@ event, so the host's launch gaps are hidden (``device_ms``).
 Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
 run: the HNSW and diffusion services and the coalesced batches), a
 ``{"rerank": {...}}`` line with the re-ranking phases' numbers, a
-``{"pq": {...}}`` line with the PQ phases' numbers, then the
+``{"pq": {...}}`` line with the PQ phases' numbers, a ``{"matchers":
+{...}}`` line with the remaining matchers' numbers, then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
@@ -263,20 +284,22 @@ def phase_split(bs, label, db, nbr0, q, starts, flush):
 def run_case(bs, cases, name, dev):
     """The kernel and its phase-clock build against plain on one edge case:
     ids in order, distances exact. Returns the largest distance difference
-    and whether the launch kept the neighbour-row cache."""
+    and the launch's plan (the neighbour-row cache, the bitset in shared memory)."""
     args, kw, ef, dtype = cases.EDGE_CASES[name]
     db, nbr0, q, starts = cases.quarter_case(*args, **kw)
     db = torch.as_tensor(db, device=dev).to(getattr(torch, dtype)).contiguous()
     args = (db,) + tuple(torch.as_tensor(a, device=dev) for a in (nbr0, q, starts))
-    cache, _ = bs.shared_memory_plan(*db.shape, nbr0.shape[1], bs.padded_ef(ef))
+    cache, smem_visited, _ = bs.shared_memory_plan(*db.shape, nbr0.shape[1], bs.padded_ef(ef))
     check(bool(cache) != (name in cases.NO_CACHE),
           f"edge case {name}: launched {'with' if cache else 'without'} the cache")
+    check(bool(smem_visited) != (name in cases.DEVICE_VISITED),
+          f"edge case {name}: visited bitset {'in' if smem_visited else 'outside'} shared memory")
     s_k, i_k = bs.beam_search(*args, ef=ef)
     s_c, i_c, _ = bs.beam_search_phase_clocks(*args, ef=ef)
     torch.cuda.synchronize()
     s_p, i_p = bs.beam_search_reference(*args, ef=ef)
     compare_beams(s_p, i_p, s_c, i_c, atol=0.0)
-    return compare_beams(s_p, i_p, s_k, i_k, atol=0.0), cache
+    return compare_beams(s_p, i_p, s_k, i_k, atol=0.0), cache, smem_visited
 
 
 def random_table(n, m0, g, dev):
@@ -307,9 +330,10 @@ def kernel_phase(bs, cases, dev, flush):
           flush=True)
     # (b) the edge cases, exact; the phase-clock build must agree as well
     for name, (args, _, ef, dtype) in cases.EDGE_CASES.items():
-        err, cache = run_case(bs, cases, name, dev)
+        err, cache, smem_visited = run_case(bs, cases, name, dev)
         print(f"edge case {name}: (seed, N, D, m0, Q) {args} ef={ef} {dtype} "
-              f"{'with' if cache else 'without'} the neighbour-row cache: "
+              f"{'with' if cache else 'without'} the neighbour-row cache, visited bitset "
+              f"in {'shared' if smem_visited else 'device'} memory: "
               f"ids in order, max_abs_err {err}", flush=True)
         out["n203"] = max(out["n203"], err)
     # (c) 1M x 2048, generated on the card
@@ -350,8 +374,10 @@ def clustered_rows(n, d, g, dev, n_centers=8192, d_eff=64, spread=0.1, chunk=131
 def coarse_starts(ix, q):
     """The kernel route's entry points: each query's best coarse node by
     inner product (``HNSWIndex.search_kernel``)."""
+    from image_search_engine_for_historical_research_tpu_torch.ops.topk import _top_exact
+
     coarse = ix.vectors[ix.coarse_ids.long()].float()
-    return ix.coarse_ids[torch.topk(q @ coarse.T, 1, dim=1).indices[:, 0]].contiguous()
+    return ix.coarse_ids[_top_exact(q @ coarse.T, 1)[1][:, 0]].contiguous()
 
 
 def recall_at(exact, got, k):
@@ -1102,7 +1128,7 @@ def pq_1m_phase(vecs, dev, flush, card):
     return out
 
 
-def pq_determinism_phase(vecs, dev, card, rows=262_144):
+def pq_determinism_phase(vecs, dev, card, rows=131_072):
     """Two card builds from one seed give identical arrays (PQ, IVF-PQ and
     HNSW-PQ with the device graph builder and the node centroid sums), and
     streamed PQ builds equal the in-memory build given the same explicit
@@ -1402,6 +1428,312 @@ def served_rerank_phase(bs, svc, make_cpu_service, gallery, paths, tmp, data_roo
     return d_launches, coalesce_rec
 
 
+INT8_OPS = 1979e12           # H100 SXM int8 dense tensor cores
+
+
+def matchers_1m_phase(vecs, dev, flush, card):
+    """The remaining matchers on the graph phase's 1M x 2048 bf16 rows (70 of
+    them as queries, against ``FlatIndex``'s exact top-100): the RP-forest
+    (100 trees, leaf 512), the int8 flat index with and without its bf16
+    re-rank copy, LSH at 512 bits, Greedyhash codes (the signs of a seeded
+    projection to 512 bits), PQ_Net over ``pq_train`` codewords (M=16,
+    Ks=256) and PQ_Net_bucket (10 buckets), and the fractional distance on
+    the first 100,000 rows. For each: build seconds and peak memory,
+    recall@10/@100, ms at Q=70 and Q=1 beside the bound of its work, a
+    ``trace_op`` trace, and the ids of 8 queries against a CPU run of the
+    same arrays (equal but at ties)."""
+    from image_search_engine_for_historical_research_tpu_torch.index import (
+        FlatIndex,
+        Int8FlatIndex,
+        RPForestIndex,
+        build_flat_i8,
+        build_rpforest,
+        normalize_rows,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.index import matchers as mt
+    from image_search_engine_for_historical_research_tpu_torch.index import rpforest as rp
+    from image_search_engine_for_historical_research_tpu_torch.ops import hashing, kmeans
+    from image_search_engine_for_historical_research_tpu_torch.ops import pq as pq_ops
+    from image_search_engine_for_historical_research_tpu_torch.ops.softpq import (
+        codewords_flat,
+        codewords_from_flat,
+    )
+
+    n, d = vecs.shape
+    q = vecs[:Q_BIG].float().contiguous()
+    qn = normalize_rows(q)
+    _, exact = FlatIndex(vectors=vecs, storage_dtype="bfloat16").search(q, 100)
+    out = {"n": n, "d": d, "queries": Q_BIG, "builds": {}, "methods": {}}
+
+    def build(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = {}
+        t0 = time.perf_counter()
+        obj = fn(st)
+        torch.cuda.synchronize()
+        st.update(total_s=time.perf_counter() - t0,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out["builds"][name] = st
+        print(f"matchers build {name}: {json.dumps(st)} ({card})", flush=True)
+        return obj
+
+    def method(name, search, cpu_search, nbytes, ops, rate=F32_FLOPS, truth=exact, reps=5,
+               score=None, **extra):
+        """``search(queries) -> (scores, ids)`` on the card, ``cpu_search``
+        on the CPU; ``score(ids, queries)`` re-scores ids on the CPU where
+        the search returns none."""
+        _, ids = search(q)
+        rec = {"recall10": recall_at(truth, ids, 10), "recall100": recall_at(truth, ids, 100),
+               "ms_q70": time_ms(lambda: search(q), reps, flush),
+               "ms_q1": time_ms(lambda: search(q[:1]), reps, flush)}
+        bnd, by = bound_of(nbytes, ops, rate)
+        rec.update(bound_ms=bnd, bound_by=by, share_of_bound=bnd / rec["ms_q70"], bytes=nbytes,
+                   ops=ops, **extra)
+        rec["trace"] = trace_op(lambda: search(q))
+        s_g, i_g = search(q[:8])
+        s_c, i_c = cpu_search(q[:8].cpu())
+        if score is not None:
+            s_g, s_c = score(torch.as_tensor(i_g).cpu()), score(torch.as_tensor(i_c).cpu())
+        rec["cpu_ranks_moved"], rec["cpu_max_rel_gap"] = compare_scored(
+            s_c, i_c, s_g, i_g, 1e-5, f"matcher {name}: card vs CPU")
+        out["methods"][name] = rec
+        print(f"matcher {name}: {json.dumps(rec)} ({card})", flush=True)
+        return rec
+
+    # ANNOY: the RP-forest at the reference script's 100 trees
+    forest = build("rpforest T=100 leaf=512", lambda st: build_rpforest(
+        vecs, n_trees=100, leaf_size=512, device=dev, stats=st))
+    T, L, leaf_max = forest.leaf_items.shape
+    out["builds"]["rpforest T=100 leaf=512"].update(depth=forest.depth, leaf_max=leaf_max)
+    cpu_forest = RPForestIndex(forest.vectors.cpu(), forest.planes.cpu(),
+                               forest.thresholds.cpu(), forest.leaf_items.cpu(), forest.depth)
+    leaf = rp._descend(forest.planes, forest.thresholds, qn, forest.depth)
+    cand = forest.leaf_items[torch.arange(T, device=dev)[None, :], leaf].reshape(Q_BIG, -1)
+    cand = torch.sort(cand, dim=1).values
+    fresh = (cand >= 0) & torch.cat([torch.ones_like(cand[:, :1], dtype=torch.bool),
+                                     cand[:, 1:] != cand[:, :-1]], 1)
+    rows = int(fresh.sum())            # each query's distinct candidates
+    descent = Q_BIG * T * forest.depth * d
+    method("ANNOY rpforest", lambda x: forest.search(x, 100), lambda x: cpu_forest.search(x, 100),
+           rows * d * 4 + descent * 2 + Q_BIG * d * 4, rows * d * 2 + descent * 2,
+           candidate_rows=rows, query_chunk=max(8, rp.GATHER_BYTES // (T * leaf_max * d)))
+    check(out["methods"]["ANNOY rpforest"]["recall10"] >= 0.8, "RP-forest recall@10 below 0.8")
+    del forest, cpu_forest, leaf, cand, fresh
+    torch.cuda.empty_cache()
+
+    # L2_int8, with and without the bf16 re-rank copy
+    for rerank in ("bfloat16", "none"):
+        ix = build(f"flat_i8 rerank={rerank}", lambda st: build_flat_i8(vecs, rerank=rerank,
+                                                                        device=dev))
+        cpu_ix = Int8FlatIndex(ix.codes.cpu(), ix.scales.cpu(),
+                               None if ix.rerank_vectors is None else ix.rerank_vectors.cpu(),
+                               ix.shortlist)
+        k_scan = ix.shortlist if rerank == "bfloat16" else 100
+        gather = Q_BIG * ix.shortlist * d * 2 if rerank == "bfloat16" else 0
+        method(f"L2_int8 rerank={rerank}", lambda x: ix.search(x, 100),
+               lambda x: cpu_ix.search(x, 100),
+               n * d + n * 4 + Q_BIG * d * 4 + Q_BIG * k_scan * 8 + gather,
+               Q_BIG * n * d * 2, INT8_OPS, scan_k=k_scan)
+        check(out["methods"][f"L2_int8 rerank={rerank}"]["recall100"] >= 0.9,
+              f"int8 rerank={rerank}: recall@100 below 0.9")
+        del ix, cpu_ix
+        torch.cuda.empty_cache()
+
+    # LSH at 512 bits (the port's seeded hyperplanes) and Greedyhash-style
+    # codes (the signs of a seeded card projection): one Hamming scan each
+    g = torch.Generator(device=dev).manual_seed(21)
+    for name, planes in (("LSH 512 bits", hashing.lsh_hyperplanes(d, 512, device=dev)),
+                         ("Greedyhash 512 bits", torch.randn(512, d, generator=g, device=dev))):
+        db_codes = build(name, lambda st: hashing.lsh_encode(planes, vecs))
+        W = db_codes.shape[1]
+        cpu_codes = db_codes.cpu()
+
+        def encode(x, planes=planes):
+            return hashing.lsh_encode(planes, normalize_rows(x.to(dev)))
+
+        method(name, lambda x: hashing.hamming_topk(db_codes, encode(x), 100),
+               lambda x: hashing.hamming_topk(cpu_codes, encode(x).cpu(), 100),
+               n * W * 4 + Q_BIG * d * 4 + Q_BIG * 100 * 8, Q_BIG * n * W * 3, words=W)
+        del db_codes, cpu_codes
+    torch.cuda.empty_cache()
+
+    # PQ_Net over pq_train codewords (M=16, Ks=256), flat and bucketed
+    cb = build("pq_train M=16 Ks=256", lambda st: pq_ops.pq_train(vecs, M=16, Ks=256,
+                                                                   train_sample=65536))
+    codes = pq_ops.codes_long(pq_ops.pq_encode(cb, vecs)).to(torch.int32)
+    flat = codewords_flat(cb.codewords)
+    cw = pq_ops.PQCodebook(codewords_from_flat(flat, 16))
+    cw_cpu = pq_ops.PQCodebook(cw.codewords.cpu())
+    codes_cpu = codes.cpu()
+    M, Ks, ds = cw.codewords.shape
+    method("PQ_Net M=16 Ks=256", lambda x: pq_ops.pq_search(cw, codes, x, 100),
+           lambda x: pq_ops.pq_search(cw_cpu, codes_cpu, x, 100),
+           n * M * 4 + M * Ks * ds * 4 + Q_BIG * d * 4 + Q_BIG * 100 * 12,
+           Q_BIG * M * Ks * ds * 2 + n * M * Q_BIG)
+    flat_np, codes_np = flat.cpu().numpy(), codes_cpu.numpy()
+    gallery = vecs.float()
+    centers, labels = build("PQ_Net_bucket k-means 10", lambda st: kmeans.kmeans_fit(
+        gallery, 10, iters=20))
+    del gallery
+    labels = labels.cpu().numpy()
+    counts = np.bincount(labels, minlength=10)
+    qb = kmeans._assign(q, centers).cpu().numpy()
+    scanned = int(counts[qb].sum())
+
+    def bucket(x):
+        idx, _ = mt.pq_net_bucket_search(100, flat_np, x, 16, codes_np, centers.to(x.device),
+                                         labels)
+        return None, torch.as_tensor(idx)
+
+    def bucket_scores(ids, x=q[:8].cpu()):
+        lut = pq_ops.pq_dist_table(cw_cpu, x)
+        s = -pq_ops.adc(lut, codes_cpu.long()[ids.clamp(min=0)])
+        return torch.where(ids >= 0, s, float("-inf"))
+
+    method("PQ_Net_bucket 10", bucket, bucket, scanned * M * 4 + Q_BIG * M * Ks * 4,
+           scanned * M + Q_BIG * M * Ks * ds * 2, score=bucket_scores,
+           bucket_rows=counts.tolist(), scanned_rows=scanned)
+    del codes, codes_cpu, centers
+    torch.cuda.empty_cache()
+
+    # fractional distance on the first 100,000 rows (O(Q N D), kept for parity)
+    nf = 100_000
+    sub = normalize_rows(vecs[:nf].float())
+    sub_cpu = sub.cpu()
+    _, exact_sub = FlatIndex(vectors=sub).search(q, 100)
+    method("fractional p=0.5 N=100000",
+           lambda x: hashing.fractional_topk(sub, normalize_rows(x), 100),
+           lambda x: hashing.fractional_topk(sub_cpu, normalize_rows(x), 100),
+           nf * d * 4 + Q_BIG * d * 4 + Q_BIG * 100 * 8, Q_BIG * nf * d * 4, truth=exact_sub,
+           reps=3, rows=nf)
+    del sub, sub_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def matchers_serving_phase(offline, online, common, argv, paths, card):
+    """The remaining matchers through ``cli.offline --loader pil`` on the served
+    gallery, and ``cli.online --matching-method ANNOY``: 4 WSGI POSTs, each
+    one's ids equal to a CPU-built service's ``query_image``."""
+    from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
+
+    out = {"offline_s": {}}
+    for method in ("L2_int8", "fractional", "LSH", "ANNOY", "Greedyhash"):
+        t0 = time.perf_counter()
+        check(offline.main(["--datasets", "images,synthetic", "--ifextracted", "--ifgenerate",
+                            "--matching-method", method, "--loader", "pil"] + common) == 0,
+              f"cli.offline {method} failed")
+        out["offline_s"][method] = time.perf_counter() - t0
+    margv = [("ANNOY" if a == "HNSW" else a) for a in argv] + ["--loader", "pil"]
+    svc = online.make_service(online.build_parser().parse_args(margv + ["--device", "cuda"]))
+    check(type(svc.index).__name__ == "RPForestIndex", "cli.online ANNOY: not a forest")
+    app = make_wsgi_app(svc)
+    post(app, paths[15])                                     # warm-up
+    posted = [post(app, p) for p in paths[:4]]
+    ids = [[r["id"] for r in o["results"]] for o in posted]
+    cpu = online.make_service(online.build_parser().parse_args(margv + ["--device", "cpu"]))
+    t0 = time.perf_counter()
+    cpu_ids = [[r["id"] for r in cpu.query_image(p)[0]] for p in paths[:4]]
+    out["cpu_query_image_s"] = (time.perf_counter() - t0) / 4
+    cpu.close()
+    check(cpu_ids == ids, f"ANNOY: CPU service ids {cpu_ids}, card {ids}")
+    out["annoy"] = {"search_s": [o["timing"]["search_s"] for o in posted],
+                    "extract_s": [o["timing"]["extract_s"] for o in posted],
+                    "rank0_own_image": sum(row[0] == i for i, row in enumerate(ids))}
+    svc.close()
+    print(f"matchers serving: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def regional_phase(paths, dev, card, n_cpu=2):
+    """A regional (Rpool over GeM) and an R-MAC ResNet101-SOLAR at full width,
+    seeded random weights, extract the 16 JPEGs one image at a time (1024
+    px, three scales, no mask); ``n_cpu`` of them are held against the same
+    nets on the CPU at 1e-4."""
+    from image_search_engine_for_historical_research_tpu_torch.data.images import load_test_image
+    from image_search_engine_for_historical_research_tpu_torch.models import init_network
+    from image_search_engine_for_historical_research_tpu_torch.models.extract import (
+        DEFAULT_SCALES,
+        make_extract_fn,
+    )
+
+    images = [torch.from_numpy(load_test_image(p, 1024))[None] for p in paths]
+    out = {}
+    for name, params in (("regional gem", {"regional": True}), ("rmac", {"pooling": "rmac"})):
+        net = init_network(params, seed=0, device=dev)
+        fn = make_extract_fn(net.module, scales=DEFAULT_SCALES)
+        fn(images[0].to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vecs = torch.cat([fn(im.to(dev)) for im in images]).cpu()
+        secs = (time.perf_counter() - t0) / len(images)
+        check(vecs.shape == (len(paths), 2048) and bool(torch.isfinite(vecs).all()),
+              f"{name}: bad descriptors")
+        check(bool(((vecs.norm(dim=1) - 1).abs() < 1e-4).all()), f"{name}: not unit norm")
+        cpu_fn = make_extract_fn(init_network(params, seed=0, device="cpu").module,
+                                 scales=DEFAULT_SCALES)
+        err = max(float((cpu_fn(images[i]) - vecs[i:i + 1]).abs().max()) for i in range(n_cpu))
+        check(err <= 1e-4, f"{name}: card vs CPU descriptor error {err} > 1e-4")
+        out[name] = {"s_per_image": secs, "cpu_max_abs_err": err, "cpu_images": n_cpu,
+                     "image_hw": list(images[0].shape[1:3])}
+        print(f"regional {name}: {json.dumps(out[name])} ({card})", flush=True)
+        del net
+    return out
+
+
+def large_n_phase(bs, dev, flush, card):
+    """HNSW above the largest N whose visited bitset fits in shared memory: a
+    random m0=32 table of 1,787,777 bf16 rows (one above that N at D=2048,
+    ef=100; 7.3 GB). ``HNSWIndex.search`` launches the kernel once with the
+    bitset in device memory; the kernel is held against its plain version on
+    the same starts, and timed beside one row fewer (bitset in shared memory,
+    without the row cache). A random graph does not promise that a query row
+    is reachable from its start, so no rank is checked against the row."""
+    from image_search_engine_for_historical_research_tpu_torch.index import HNSWIndex
+
+    limit = 1_787_776
+    n = limit + 1
+    g = torch.Generator(device=dev).manual_seed(3)
+    vecs = torch.empty((n, D), dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, 262144):
+        blk = torch.randn((min(262144, n - s), D), device=dev, generator=g)
+        vecs[s:s + blk.shape[0]] = blk / blk.norm(dim=1, keepdim=True)
+    nbr0 = torch.randint(0, n - 1, (n, M0), device=dev, dtype=torch.int32, generator=g)
+    nbru = torch.full((5, n, 16), -1, dtype=torch.int32, device=dev)
+    coarse = torch.arange(0, n - 1, 4096, dtype=torch.int32, device=dev)
+    pick = torch.randint(0, n - 1, (Q_BIG,), generator=g, device=dev)
+    q = unit_rows(vecs[pick].float() + 0.5 * torch.randn(Q_BIG, D, generator=g, device=dev)
+                  / D ** 0.5)
+    big = HNSWIndex(vecs, nbr0, nbru, 0, EF, coarse)
+    plans = {}
+    for label, N in (("device_bitset", n), ("shared_bitset", limit)):
+        cache, smem_visited, smem = bs.shared_memory_plan(N, D, M0, bs.padded_ef(EF))
+        plans[label] = {"N": N, "cache": cache, "smem_visited": smem_visited, "smem": smem}
+    check(plans["device_bitset"]["smem_visited"] == 0 and plans["device_bitset"]["cache"] == 1,
+          f"N={n}: plan {plans['device_bitset']}")
+    check(plans["shared_bitset"]["smem_visited"] == 1, f"N={limit}: plan {plans['shared_bitset']}")
+    bs.launches = 0
+    t0 = time.perf_counter()
+    s4, i4 = big.search(q[:4], 10)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    check(bs.launches == 1, f"N={n}: {bs.launches} kernel launches, want 1")
+    check(bool((i4 >= 0).all()) and bool(torch.isfinite(s4).all()), f"N={n}: bad results")
+    starts = coarse_starts(big, q)
+    _, i_k = bs.beam_search(vecs, nbr0, q[:4], starts[:4], ef=EF)
+    check(torch.equal(i_k[:, :10], i4), f"N={n}: HNSWIndex.search differs from its kernel call")
+    out = {"n": n, "plans": plans, "search_s_q4": search_s}
+    for label, N in (("device_bitset", n), ("shared_bitset", limit)):
+        rec = measure(bs, vecs[:N], nbr0[:N], q, starts, flush, tie=1e-3, reps=10)
+        out[label] = rec
+        print(f"beam_search at N={N} ({label}): {json.dumps(rec)} ({card})", flush=True)
+    del vecs, nbr0, nbru, big
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -1460,8 +1792,12 @@ def main():
     # the PQ family at 1M on the same rows, then determinism and streaming
     pq_rec = pq_1m_phase(big, dev, flush, card)
     pq_rec["determinism"] = pq_determinism_phase(big, dev, card)
+
+    # the remaining matchers on the same rows, then HNSW above the kernel's N limit
+    match_rec = matchers_1m_phase(big, dev, flush, card)
     del big
     torch.cuda.empty_cache()
+    match_rec["large_n"] = large_n_phase(bs, dev, flush, card)
 
     # 4. the global re-rankers at rParis6k's shape, and k-reciprocal at 100k
     rr = rerank_phase(dev, flush, card)
@@ -1577,6 +1913,8 @@ def main():
         svc_l2.close()
 
         pq_rec["serving"] = pq_serving_phase(offline, online, common, argv, paths, dev, card)
+        match_rec["serving"] = matchers_serving_phase(offline, online, common, argv, paths, card)
+        match_rec["regional"] = regional_phase(paths, dev, card)
 
         d_launches, coalesce_rec = served_rerank_phase(
             bs, svc, lambda: online.make_service(online.build_parser().parse_args(
@@ -1601,6 +1939,7 @@ def main():
 
     err = max([kres["n203"], kres["1m_float32"]["max_abs_err"],
                kres["1m_bfloat16"]["max_abs_err"], graph_rec["max_abs_err"]]
+              + [match_rec["large_n"][k]["max_abs_err"] for k in ("device_bitset", "shared_bitset")]
               + [r["max_abs_err"] for r in served])
     main_rec = served[0]
     print(json.dumps({"kernels": [{
@@ -1623,6 +1962,7 @@ def main():
                                  "diffusion_1m": diff_1m, "coalescing": coalesce_rec,
                                  "clis": cli_rec}}))
     print(json.dumps({"pq": pq_rec}))
+    print(json.dumps({"matchers": match_rec}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

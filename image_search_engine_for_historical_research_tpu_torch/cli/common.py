@@ -53,9 +53,8 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--multiscale", default="[1, 2**(1/2), 1/2**(1/2)]",
                         help="python list of scales (reference flag format)")
     parser.add_argument("--matching-method", default="L2",
-                        help="L2 (exact) | HNSW | PQ | Nano_PQ | PQ_HNSW | HNSW_NanoPQ | "
-                             "IVFPQ are ported; ANNOY | LSH and the rest exit naming "
-                             "their ROADMAP item")
+                        help="L2 (exact) | L2_int8 | fractional | LSH | ANNOY | HNSW | "
+                             "PQ | Nano_PQ | PQ_HNSW | HNSW_NanoPQ | IVFPQ | Greedyhash")
     parser.add_argument("--opq", nargs="?", const=True, default=False,
                         choices=[True, False, "refine"],
                         help="learned orthogonal pre-rotation for PQ-family "
@@ -82,13 +81,24 @@ def parse_scales(expr: str) -> Sequence[float]:
 
 
 def check_matcher(method: str) -> None:
-    """Exit at start-up on a matching method that is unknown or not ported."""
-    from ..index.matchers import MATCHERS, NOT_PORTED, not_ported_message
+    """Exit at start-up on a matching method that is unknown."""
+    from ..index.matchers import MATCHERS
 
     if method not in MATCHERS:
         raise SystemExit(f"unknown matching method {method!r}; have {sorted(MATCHERS)}")
-    if method in NOT_PORTED:
-        raise SystemExit(not_ported_message(method))
+
+
+def add_loader_arg(parser: argparse.ArgumentParser):
+    parser.add_argument("--loader", default="pil", choices=["pil", "native"],
+                        help="image decoding: pil; native (the threaded libjpeg loader) "
+                             "is not ported yet and exits")
+
+
+def check_loader(loader: str) -> None:
+    """Exit at start-up on ``--loader native``, which is not ported yet."""
+    if loader != "pil":
+        raise SystemExit(f"--loader {loader} is not ported yet: see ROADMAP section 1, "
+                         "item 2 (the native JPEG loader). The port decodes with --loader pil.")
 
 
 def dispatch_matcher(method: str, *args, **kwargs):
@@ -100,12 +110,13 @@ def dispatch_matcher(method: str, *args, **kwargs):
 
 
 def matcher_kwargs(args, dataset: str) -> dict:
-    """The matcher's keyword arguments from the CLI flags: the device; for
-    an index with an artifact its name, ``--ifgenerate`` and ``--outputs``;
-    for the PQ family ``--opq``, and ``--refine-m`` when it is given."""
+    """The matcher's keyword arguments from the CLI flags (JAX
+    ``cli/offline.py:77-92``): the device; for an index with an artifact
+    its name, ``--ifgenerate`` and ``--outputs``; for the PQ family
+    ``--opq``, and ``--refine-m`` when it is given."""
     from ..index.matchers import PQ_METHODS
 
-    if args.matching_method == "L2":
+    if args.matching_method in ("L2", "L2_int8", "fractional", "LSH", "Greedyhash"):
         return {"device": args.device}
     kw = {"dataset": dataset, "ifgenerate": args.ifgenerate, "outputs": args.outputs,
           "device": args.device}

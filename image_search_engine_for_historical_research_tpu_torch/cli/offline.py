@@ -4,8 +4,9 @@ Port of ``image_search_engine_for_historical_research_tpu/cli/offline.py``:
 walk the dataset folders under ``--data-root``, extract multi-scale
 descriptors, save the feature store (or reuse it with ``--ifextracted``),
 then build the chosen matcher's index (``--ifgenerate`` rebuilds an existing
-artifact) and run one probe query through it. ``--loader native`` (the
-threaded libjpeg loader) is not ported yet.
+artifact) and run one probe query through it. ``--loader pil`` decodes the
+images; ``--loader native`` (the threaded libjpeg loader) is not ported yet
+and exits at start-up.
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.offline \
@@ -24,6 +25,8 @@ from ..device import resolve_device
 from ..models.extract import extract_vectors
 from .common import (
     add_common_args,
+    add_loader_arg,
+    check_loader,
     check_matcher,
     dispatch_matcher,
     load_network,
@@ -41,6 +44,7 @@ def build_parser():
     p.add_argument("--ifextracted", action="store_true",
                    help="reuse stored features instead of re-extracting")
     p.add_argument("--K", type=int, default=100)
+    add_loader_arg(p)
     return p
 
 
@@ -48,6 +52,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     resolve_device(args.device)
     check_matcher(args.matching_method)
+    check_loader(args.loader)
     scales = parse_scales(args.multiscale)
     datasets = args.datasets.split(",")
 

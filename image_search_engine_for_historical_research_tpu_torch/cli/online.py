@@ -3,9 +3,10 @@
 Port of ``image_search_engine_for_historical_research_tpu/cli/online.py`` for
 ``--matching-method L2`` (a ``FlatIndex`` over the stored features, built at
 start-up), ``HNSW`` and the PQ family (``PQ``/``Nano_PQ``, ``PQ_HNSW``/
-``HNSW_NanoPQ``, ``IVFPQ``: the artifact ``cli.offline`` wrote, by the JAX
-package's kind map). Other matching methods exit with the ROADMAP item that
-ports them. ``--coalesce MAX_BATCH``
+``HNSW_NanoPQ``, ``IVFPQ``, ``ANNOY``: the artifact ``cli.offline`` wrote, by
+the JAX package's kind map). ``--loader pil`` decodes the uploads;
+``--loader native`` is not ported yet and exits at start-up.
+``--coalesce MAX_BATCH``
 puts ``serving.batching.CoalescingService`` in front of the service and
 serves on a threaded server.
 
@@ -26,7 +27,20 @@ from ..index import build_flat, load_index
 from ..ops.beam_search import check_ef
 from ..serving.app import SearchService, serve
 from ..serving.batching import CoalescingService
-from .common import add_common_args, check_matcher, load_network, parse_scales
+from .common import (
+    add_common_args,
+    add_loader_arg,
+    check_loader,
+    check_matcher,
+    load_network,
+    parse_scales,
+)
+
+# matching method -> the index artifact it serves (JAX ``cli/online.py:57-60``)
+SERVED_KINDS = {
+    "PQ": "pq", "Nano_PQ": "pq", "ANNOY": "rpforest", "HNSW": "hnsw",
+    "PQ_HNSW": "hnsw_pq", "HNSW_NanoPQ": "hnsw_pq", "IVFPQ": "ivfpq",
+}
 
 
 def build_parser():
@@ -40,6 +54,7 @@ def build_parser():
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--no-rerank", action="store_true")
+    add_loader_arg(p)
     p.add_argument("--coalesce", type=int, default=0, metavar="MAX_BATCH",
                    help="micro-batch concurrent requests into one device pass "
                         "(serving.batching; implies a threaded server). 0 = off "
@@ -50,6 +65,7 @@ def build_parser():
 def make_service(args) -> SearchService:
     resolve_device(args.device)
     check_matcher(args.matching_method)
+    check_loader(args.loader)
     datasets = args.datasets.split(",")
     vecs_l, paths = [], []
     for ds in datasets:
@@ -61,10 +77,10 @@ def make_service(args) -> SearchService:
         index = build_flat(vecs, device=args.device)
     else:
         name = "_".join(d.replace("/", "_") for d in datasets)
-        kind = {
-            "PQ": "pq", "Nano_PQ": "pq", "HNSW": "hnsw",
-            "PQ_HNSW": "hnsw_pq", "HNSW_NanoPQ": "hnsw_pq", "IVFPQ": "ivfpq",
-        }[args.matching_method]
+        if args.matching_method not in SERVED_KINDS:
+            raise SystemExit(f"--matching-method {args.matching_method} has no served index; "
+                             f"cli.online serves L2, {', '.join(SERVED_KINDS)}")
+        kind = SERVED_KINDS[args.matching_method]
         index = load_index(f"{args.outputs}/{name}/{kind}", device=args.device)
         if kind == "hnsw" and index.device.type == "cuda":
             try:  # refuse a K the kernel cannot serve now, not on every query

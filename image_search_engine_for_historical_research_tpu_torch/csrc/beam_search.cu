@@ -35,8 +35,13 @@
 //     ceil(N/32) words in dynamic shared memory (125 KB at N = 1M), beside the
 //     query row, the beam's ids, the candidates and the neighbour-row cache.
 //     The wrapper drops the cache where it does not fit (the kernel then reads
-//     the popped node's row from device memory, as the TPU kernel does) and
-//     refuses N whose shared memory does not fit even so. Warp 0 steers
+//     the popped node's row from device memory, as the TPU kernel does). Where
+//     the bitset does not fit even so (N above about 1.79M at D = 2048), it
+//     lives in device memory, one row of words a block (the wrapper's zeroed
+//     buffer), and is tested and set by global atomicOr alone:
+//     the first lane of each id repeated in a chunk of the row
+//     (__match_any_sync) takes the atomic, so the first position stays the
+//     fresh one, and no plain load can read a stale L1 line. Warp 0 steers
 //     (the visited test, the inserts, the pop); warps 1..15 score rows. They
 //     meet at two named barriers a hop, the side that hands work over
 //     arriving (bar.arrive) and the side that waits syncing, never at a
@@ -303,8 +308,10 @@ __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(
 // D rounded up to the width one burst covers (32 lanes x 16 float4 = 2048)
 __host__ __device__ inline int padded_d(int D) { return (D + 2047) / 2048 * 2048; }
 
-// cache = false leaves out the neighbour-row cache and its staging rows
-__host__ __device__ inline Layout layout(int N, int D, int m0, int ef_pad, bool cache) {
+// cache = false leaves out the neighbour-row cache and its staging rows;
+// smem_visited = false leaves out the visited bitset (it is in device memory)
+__host__ __device__ inline Layout layout(int N, int D, int m0, int ef_pad, bool cache,
+                                         bool smem_visited) {
   Layout l;
   l.q = 0;  // the query row, zero-padded to whole 2048-wide chunks
   l.beam_id = align16(l.q + sizeof(float) * padded_d(D));
@@ -314,7 +321,7 @@ __host__ __device__ inline Layout layout(int N, int D, int m0, int ef_pad, bool 
   l.cand_nbr = align16(l.scal + sizeof(int) * 4);
   l.nbr_cache = l.cand_nbr + (cache ? sizeof(int) * m0 * m0 : 0);
   l.visited = align16(l.nbr_cache + (cache ? sizeof(int) * ef_pad * m0 : 0));
-  l.total = l.visited + sizeof(uint32_t) * ((N + 31) / 32);
+  l.total = l.visited + (smem_visited ? sizeof(uint32_t) * ((N + 31) / 32) : 0);
   return l;
 }
 
@@ -325,8 +332,8 @@ __global__ void __launch_bounds__(kThreads, 1)  // one block an SM: 128 register
 beam_kernel(const T* __restrict__ db, const int* __restrict__ nbr0,
             const float* __restrict__ queries, const int* __restrict__ starts,
             int N, int D, int m0, int ef_pad, int max_steps,
-            int* __restrict__ out_ids, float* __restrict__ out_d,
-            unsigned long long* __restrict__ clocks) {
+            uint32_t* __restrict__ visited_g, int* __restrict__ out_ids,
+            float* __restrict__ out_d, unsigned long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
 #ifdef BEAM_SEARCH_PHASE_CLOCKS
   __shared__ unsigned long long clk_work[kWarps];  // a warp's B, own clock
@@ -334,7 +341,10 @@ beam_kernel(const T* __restrict__ db, const int* __restrict__ nbr0,
   if (threadIdx.x < kClockSlots) clk_sum[threadIdx.x] = 0;
 #endif
   const unsigned long long t_begin = kClocks ? clock64() : 0;
-  const Layout L = layout(N, D, m0, ef_pad, kCache);
+  // visited_g: a (gridDim.x, ceil(N/32)) bitset in device memory, or null
+  // for the bitset in shared memory
+  const bool gvis = visited_g != nullptr;
+  const Layout L = layout(N, D, m0, ef_pad, kCache, !gvis);
   float* q = reinterpret_cast<float*>(smem + L.q);
   int* beam_id = reinterpret_cast<int*>(smem + L.beam_id);
   int* cand_id = reinterpret_cast<int*>(smem + L.cand_id);
@@ -351,10 +361,11 @@ beam_kernel(const T* __restrict__ db, const int* __restrict__ nbr0,
   const int warp = tid >> 5;
   const int vw = (N + 31) / 32;
   const int start = starts[qid];
+  uint32_t* vg = gvis ? visited_g + static_cast<size_t>(qid) * vw : nullptr;
 
   const float* qg = queries + static_cast<size_t>(qid) * D;
   for (int i = tid; i < padded_d(D); i += kThreads) q[i] = i < D ? qg[i] : 0.f;
-  for (int i = tid; i < vw; i += kThreads) visited[i] = 0u;
+  for (int i = tid; !gvis && i < vw; i += kThreads) visited[i] = 0u;
   for (int i = tid; i < ef_pad; i += kThreads) beam_id[i] = i == 0 ? start : -1;
   __syncthreads();
 
@@ -369,7 +380,8 @@ beam_kernel(const T* __restrict__ db, const int* __restrict__ nbr0,
   if (warp == 1) {
     score_node<kCache>(db, nbr0, start, q, q2, D, m0, lane, &cand_d[0], nbr_cache);
     wait_copies();
-    if (lane == 0) visited[start >> 5] |= 1u << (start & 31);
+    if (lane == 0 && gvis) atomicOr(vg + (start >> 5), 1u << (start & 31));
+    if (lane == 0 && !gvis) visited[start >> 5] |= 1u << (start & 31);
   }
   __syncthreads();
 
@@ -408,7 +420,18 @@ beam_kernel(const T* __restrict__ db, const int* __restrict__ nbr0,
       const int* row = kCache ? nbr_cache + popped * m0
                               : nbr0 + static_cast<size_t>(beam_id[popped]) * m0;
       int n_fresh = 0;
-      for (int base = 0; base < m0; base += 32) {
+      for (int base = 0; gvis && base < m0; base += 32) {  // bitset in device memory
+        const int j = base + lane;
+        const int nid = j < m0 ? row[j] : -1;
+        const unsigned peers = __match_any_sync(kFull, nid >= 0 ? nid : -1 - lane);
+        const bool won = nid >= 0 && __ffs(peers) - 1 == lane &&
+                         (atomicOr(vg + (nid >> 5), 1u << (nid & 31)) & (1u << (nid & 31))) == 0u;
+        const unsigned fm = __ballot_sync(kFull, won);
+        if (won) cand_id[n_fresh + __popc(fm & ((1u << lane) - 1u))] = nid;
+        n_fresh += __popc(fm);
+        __syncwarp();
+      }
+      for (int base = 0; !gvis && base < m0; base += 32) {
         const int j = base + lane;
         const int nid = j < m0 ? row[j] : -1;
         const bool cand = nid >= 0 && (visited[nid >> 5] & (1u << (nid & 31))) == 0u;
@@ -547,9 +570,9 @@ beam_kernel(const T* __restrict__ db, const int* __restrict__ nbr0,
 template <typename T, int S, bool kCache>
 int launch_kernel(const void* db, const void* nbr0, const void* queries,
                   const void* starts, int N, int D, int m0, int Q, int ef_pad,
-                  int max_steps, void* out_ids, void* out_d, void* clocks,
-                  void* stream) {
-  const size_t smem = layout(N, D, m0, ef_pad, kCache).total;
+                  int max_steps, void* visited, void* out_ids, void* out_d,
+                  void* clocks, void* stream) {
+  const size_t smem = layout(N, D, m0, ef_pad, kCache, visited == nullptr).total;
   cudaError_t err = cudaFuncSetAttribute(
       beam_kernel<T, S, kCache>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -557,34 +580,35 @@ int launch_kernel(const void* db, const void* nbr0, const void* queries,
   beam_kernel<T, S, kCache><<<Q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(db), static_cast<const int*>(nbr0),
       static_cast<const float*>(queries), static_cast<const int*>(starts), N, D,
-      m0, ef_pad, max_steps, static_cast<int*>(out_ids),
-      static_cast<float*>(out_d), static_cast<unsigned long long*>(clocks));
+      m0, ef_pad, max_steps, static_cast<uint32_t*>(visited),
+      static_cast<int*>(out_ids), static_cast<float*>(out_d),
+      static_cast<unsigned long long*>(clocks));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int S>
 int launch(const void* db, const void* nbr0, const void* queries,
            const void* starts, int N, int D, int m0, int Q, int ef_pad,
-           int max_steps, int cache, void* out_ids, void* out_d, void* clocks,
-           void* stream) {
+           int max_steps, int cache, void* visited, void* out_ids, void* out_d,
+           void* clocks, void* stream) {
   return cache ? launch_kernel<T, S, true>(db, nbr0, queries, starts, N, D, m0, Q,
-                                           ef_pad, max_steps, out_ids, out_d,
-                                           clocks, stream)
+                                           ef_pad, max_steps, visited, out_ids,
+                                           out_d, clocks, stream)
                : launch_kernel<T, S, false>(db, nbr0, queries, starts, N, D, m0, Q,
-                                            ef_pad, max_steps, out_ids, out_d,
-                                            clocks, stream);
+                                            ef_pad, max_steps, visited, out_ids,
+                                            out_d, clocks, stream);
 }
 
 // the beam's registers per lane: ef_pad / 32 rounded up to 4, 8, 16, 32 or 64
 template <typename T>
 int launch_slots(const void* db, const void* nbr0, const void* queries,
                  const void* starts, int N, int D, int m0, int Q, int ef_pad,
-                 int max_steps, int cache, void* out_ids, void* out_d,
-                 void* clocks, void* stream) {
+                 int max_steps, int cache, void* visited, void* out_ids,
+                 void* out_d, void* clocks, void* stream) {
   const int slots = (ef_pad + 31) / 32;
 #define BEAM_SEARCH_LAUNCH(S)                                                    \
   launch<T, S>(db, nbr0, queries, starts, N, D, m0, Q, ef_pad, max_steps, cache, \
-               out_ids, out_d, clocks, stream)
+               visited, out_ids, out_d, clocks, stream)
   if (slots <= 4) return BEAM_SEARCH_LAUNCH(4);
   if (slots <= 8) return BEAM_SEARCH_LAUNCH(8);
   if (slots <= 16) return BEAM_SEARCH_LAUNCH(16);
@@ -596,24 +620,27 @@ int launch_slots(const void* db, const void* nbr0, const void* queries,
 
 int dispatch(const void* db, int db_is_bf16, const void* nbr0,
              const void* queries, const void* starts, int N, int D, int m0,
-             int Q, int ef_pad, int max_steps, int cache, void* out_ids,
-             void* out_d, void* clocks, void* stream) {
+             int Q, int ef_pad, int max_steps, int cache, void* visited,
+             void* out_ids, void* out_d, void* clocks, void* stream) {
   if (db_is_bf16)
     return launch_slots<__nv_bfloat16>(db, nbr0, queries, starts, N, D, m0, Q,
-                                       ef_pad, max_steps, cache, out_ids, out_d,
-                                       clocks, stream);
+                                       ef_pad, max_steps, cache, visited, out_ids,
+                                       out_d, clocks, stream);
   return launch_slots<float>(db, nbr0, queries, starts, N, D, m0, Q, ef_pad,
-                             max_steps, cache, out_ids, out_d, clocks, stream);
+                             max_steps, cache, visited, out_ids, out_d, clocks,
+                             stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs: the visited bitset, the query row,
-// the beam's ids, the candidates and, with cache = 1, the neighbour-row cache.
-size_t beam_search_smem_bytes(int N, int D, int m0, int ef_pad, int cache) {
-  return layout(N, D, m0, ef_pad, cache != 0).total;
+// Dynamic shared memory one block needs: the query row, the beam's ids, the
+// candidates, with cache = 1 the neighbour-row cache and, with smem_visited =
+// 1, the visited bitset.
+size_t beam_search_smem_bytes(int N, int D, int m0, int ef_pad, int cache,
+                              int smem_visited) {
+  return layout(N, D, m0, ef_pad, cache != 0, smem_visited != 0).total;
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
@@ -621,13 +648,15 @@ size_t beam_search_smem_bytes(int N, int D, int m0, int ef_pad, int cache) {
 // nbr0: (N, m0) int32, -1 padded; queries: (Q, D) f32; starts: (Q,) int32 in
 // [0, N); out_ids: (Q, ef_pad) int32; out_d: (Q, ef_pad) f32; ef_pad % 32 == 0,
 // ef_pad <= 2048; cache: 1 keeps the neighbour rows of the beam's nodes in
-// shared memory, 0 reads the popped node's row from device memory.
+// shared memory, 0 reads the popped node's row from device memory; visited:
+// null keeps the visited bitset in shared memory, else (Q, ceil(N/32)) uint32
+// words in device memory, all zero.
 int beam_search_launch(const void* db, int db_is_bf16, const void* nbr0,
                        const void* queries, const void* starts, int N, int D,
                        int m0, int Q, int ef_pad, int max_steps, int cache,
-                       void* out_ids, void* out_d, void* stream) {
+                       void* visited, void* out_ids, void* out_d, void* stream) {
   return dispatch(db, db_is_bf16, nbr0, queries, starts, N, D, m0, Q, ef_pad,
-                  max_steps, cache, out_ids, out_d, nullptr, stream);
+                  max_steps, cache, visited, out_ids, out_d, nullptr, stream);
 }
 
 #ifdef BEAM_SEARCH_PHASE_CLOCKS
@@ -635,10 +664,10 @@ int beam_search_launch(const void* db, int db_is_bf16, const void* nbr0,
 int beam_search_launch_clocks(const void* db, int db_is_bf16, const void* nbr0,
                               const void* queries, const void* starts, int N,
                               int D, int m0, int Q, int ef_pad, int max_steps,
-                              int cache, void* out_ids, void* out_d,
-                              void* clocks, void* stream) {
+                              int cache, void* visited, void* out_ids,
+                              void* out_d, void* clocks, void* stream) {
   return dispatch(db, db_is_bf16, nbr0, queries, starts, N, D, m0, Q, ef_pad,
-                  max_steps, cache, out_ids, out_d, clocks, stream);
+                  max_steps, cache, visited, out_ids, out_d, clocks, stream);
 }
 #endif
 

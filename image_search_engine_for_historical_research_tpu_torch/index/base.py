@@ -59,9 +59,7 @@ def load_index(path: str, device="cuda"):
         raise ValueError(f"artifact from a newer format: {manifest}")
     kind = manifest["kind"]
     if kind not in _REGISTRY:
-        raise ValueError(
-            f"index kind {kind!r} is not ported yet (have {sorted(_REGISTRY)})"
-        )
+        raise ValueError(f"unknown index kind {kind!r} (have {sorted(_REGISTRY)})")
     with np.load(os.path.join(path, ARRAYS)) as z:
         arrays = dict(z)
     return _REGISTRY[kind].from_arrays(manifest["meta"], arrays, device=dev)

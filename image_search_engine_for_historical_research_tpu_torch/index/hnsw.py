@@ -133,7 +133,7 @@ class HNSWIndex:
             s = min(s, int(self.coarse_ids.shape[0]))
             if self._coarse_vecs is None:   # in the queries' f32, as JAX casts them
                 self._coarse_vecs = self.vectors[self.coarse_ids.long()].to(q.dtype)
-            _, top = torch.topk(q @ self._coarse_vecs.T, s, dim=1)
+            _, top = _top_exact(q @ self._coarse_vecs.T, s)     # lax.top_k's ties
             starts = self.coarse_ids[top]                         # (Q, s)
         else:
             s = 1

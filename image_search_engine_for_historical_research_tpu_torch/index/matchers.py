@@ -1,18 +1,20 @@
 """The ``matching_*`` matcher family behind the CLIs.
 
-Port of part of ``image_search_engine_for_historical_research_tpu/index/matchers.py``
-(:35-60, :119-238, :242-255): the same inputs and outputs,
-``(idx (num_test, K) int64, seconds per query)``, and the same
-``ifgenerate`` build-or-load artifact contract. Input features are
-row-L2-normalized inside each matcher. The clock covers the search only,
-never the build, and ends once the ids are on the host; ``warmup=True`` runs
-one query first so that a first call's set-up is not timed.
+Port of ``image_search_engine_for_historical_research_tpu/index/matchers.py``
+(:35-342): the same inputs and outputs, ``(idx (num_test, K) int64, seconds
+per query)``, and the same ``ifgenerate`` build-or-load artifact contract.
+Input features are row-L2-normalized inside each matcher (the PQ_Net
+matchers take codewords and codes as given). The clock covers the search
+only, never the build, and ends once the ids are on the host; ``warmup=True``
+runs one query first so that a first call's set-up is not timed.
 
-Ported: ``L2`` (exact, ``FlatIndex``), ``HNSW`` (native host build, search
-in the kernel) and the PQ family: ``PQ`` / ``Nano_PQ`` (``build_pq``),
-``PQ_HNSW`` / ``HNSW_NanoPQ`` (``build_hnsw_pq``) and ``IVFPQ``
-(``build_ivfpq``), with the defaults of the reference's scripts. Every other method
-in ``MATCHERS`` exits naming the ROADMAP item that ports it (``NOT_PORTED``).
+Every method of ``MATCHERS`` is ported: ``L2`` (``FlatIndex``), ``L2_int8``
+(``Int8FlatIndex``), ``fractional``, ``LSH`` and ``Greedyhash``
+(``ops.hashing``), ``ANNOY`` (``RPForestIndex``), ``HNSW`` (native host
+build, search in the kernel), the PQ family (``PQ`` / ``Nano_PQ``,
+``PQ_HNSW`` / ``HNSW_NanoPQ``, ``IVFPQ``), and ``PQ_Net`` with its bucketed
+form ``matching_PQ_Net_bucket``, with the defaults of the reference's
+scripts.
 
 One departure from the JAX package: its ``cli.offline`` passes
 ``refine_M=`` to ``matching_HNSW_NanoPQ``, whose signature has no such
@@ -31,21 +33,16 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import hashing, kmeans
+from ..ops.pq import PQCodebook, adc, codes_long, pq_dist_table, pq_search
+from ..ops.softpq import codewords_from_flat
+from ..ops.topk import _top_exact
 from .base import load_index, normalize_rows, save_index
-from .flat import build_flat
+from .flat import build_flat, build_flat_i8
 from .hnsw import build_hnsw, build_hnsw_pq
 from .ivfpq import build_ivfpq
 from .pq import build_pq
-
-# matching method -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "L2_int8": "the remaining matchers",
-    "fractional": "the remaining matchers",
-    "LSH": "the remaining matchers",
-    "ANNOY": "the remaining matchers",
-    "Greedyhash": "the remaining matchers",
-    "PQ_Net": "the remaining matchers",
-}
+from .rpforest import build_rpforest
 
 # the methods that take --opq and --refine-m
 PQ_METHODS = ("PQ", "Nano_PQ", "PQ_HNSW", "HNSW_NanoPQ", "IVFPQ")
@@ -55,14 +52,20 @@ def _as_rows(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
 
 
-def _timed_search(index, qvecs, K, warmup=True):
+def _timed_scan(scan, q, warmup=True):
+    """``scan(queries) -> (scores, ids)`` over ``q``: ``(ids int64 on the
+    host, seconds per query)``, the clock around the search and the copy."""
     if warmup:
-        index.search(qvecs[:1], min(K, index.n))
+        scan(q[:1])
     t1 = time.perf_counter()
-    _, idx = index.search(qvecs, K)
+    _, idx = scan(q)
     idx = idx.cpu().numpy().astype(np.int64)
     t2 = time.perf_counter()
-    return idx, (t2 - t1) / qvecs.shape[0]
+    return idx, (t2 - t1) / q.shape[0]
+
+
+def _timed_search(index, qvecs, K, warmup=True):
+    return _timed_scan(lambda x: index.search(x, K), qvecs, warmup)
 
 
 def _artifact(dataset: str, name: str, outputs: str = "outputs") -> str:
@@ -164,27 +167,135 @@ def matching_IVFPQ(K, train, test, dataset, nlist=316, M=16, nbits=8, nprobe=64,
     return _timed_search(index, q, min(K, index.n), warmup)
 
 
-def _not_ported(method: str) -> Callable:
-    def matcher(*args, **kwargs):
-        raise SystemExit(not_ported_message(method))
+def matching_L2_int8(K, train, test, rerank="bfloat16", shortlist=512, warmup=True,
+                     device="cuda"):
+    """Exact search over an int8 gallery (``Int8FlatIndex``; with
+    ``rerank="bfloat16"`` a bf16 copy re-ranks the int8 shortlist)."""
+    db = _as_rows(train, device)
+    q = normalize_rows(_as_rows(test, device))
+    index = build_flat_i8(db, rerank=rerank, shortlist=shortlist, device=device)
+    return _timed_search(index, q, min(K, index.n), warmup)
 
-    return matcher
+
+def matching_fractional_dis(K, train, test, p=0.5, warmup=True, device="cuda"):
+    """Fractional-distance matcher (the reference's ``p = 0.5``)."""
+    db = normalize_rows(_as_rows(train, device))
+    q = normalize_rows(_as_rows(test, device))
+    k = min(K, db.shape[0])
+    return _timed_scan(lambda x: hashing.fractional_topk(db, x, k, p), q, warmup)
 
 
-def not_ported_message(method: str) -> str:
-    return (f"--matching-method {method} is not ported yet: see ROADMAP, "
-            f"{NOT_PORTED[method]}. The port has --matching-method L2, HNSW, "
-            f"{', '.join(PQ_METHODS)}.")
+def matching_LSH(K, train, test, n_bits=512, seed=42, warmup=True, device="cuda"):
+    """Random-hyperplane LSH codes and a Hamming scan."""
+    db = normalize_rows(_as_rows(train, device))
+    q = normalize_rows(_as_rows(test, device))
+    planes = hashing.lsh_hyperplanes(db.shape[1], n_bits, seed, device=device)
+    db_codes = hashing.lsh_encode(planes, db)
+    q_codes = hashing.lsh_encode(planes, q)
+    k = min(K, db.shape[0])
+    return _timed_scan(lambda x: hashing.hamming_topk(db_codes, x, k), q_codes, warmup)
+
+
+def matching_Greedyhash(K, hash_train, hash_test, warmup=True, device="cuda"):
+    """Hamming matcher over external binary codes (their signs, packed)."""
+    dev = resolve_device(device)
+    db = hashing.pack_bits(torch.as_tensor(np.asarray(hash_train) > 0, device=dev))
+    q = hashing.pack_bits(torch.as_tensor(np.asarray(hash_test) > 0, device=dev))
+    k = min(K, db.shape[0])
+    return _timed_scan(lambda x: hashing.hamming_topk(db, x, k), q, warmup)
+
+
+def matching_ANNOY(K, train, test, metric="euclidean", dataset="default", n_trees=100,
+                   leaf_size=512, ifgenerate=True, outputs="outputs", warmup=True,
+                   device="cuda"):
+    """RP-forest, the ANNOY-class matcher (``<outputs>/<dataset>/rpforest``;
+    the reference script's 100 trees, leaf 512)."""
+    q = normalize_rows(_as_rows(test, device))
+    path = _artifact(dataset, "rpforest", outputs)
+    index = _build_or_load(
+        path, ifgenerate,
+        lambda: build_rpforest(np.asarray(train, np.float32), n_trees=n_trees,
+                               leaf_size=leaf_size, device=device),
+        device,
+    )
+    return _timed_search(index, q, min(K, index.n), warmup)
 
 
 # method-name dispatch used by the CLIs
 MATCHERS: Dict[str, Callable] = {
     "L2": matching_L2,
-    "HNSW": matching_HNSW,
+    "L2_int8": matching_L2_int8,
+    "fractional": matching_fractional_dis,
+    "LSH": matching_LSH,
     "PQ": matching_Nano_PQ,
     "Nano_PQ": matching_Nano_PQ,
+    "ANNOY": matching_ANNOY,
+    "HNSW": matching_HNSW,
     "PQ_HNSW": matching_HNSW_NanoPQ,
     "HNSW_NanoPQ": matching_HNSW_NanoPQ,
     "IVFPQ": matching_IVFPQ,
-    **{method: _not_ported(method) for method in NOT_PORTED},
+    "Greedyhash": matching_Greedyhash,
 }
+
+
+def matching_PQ_Net(K, Codewords, Query, N_books, CW_idx, warmup=True, device="cuda"):
+    """ADC over externally trained codewords: ``Codewords`` in the flat
+    ``(N_words, N_books * L_word)`` layout, ``CW_idx (N, N_books)`` codes."""
+    dev = resolve_device(device)
+    cw = codewords_from_flat(_as_rows(Codewords, dev), N_books)
+    codes = torch.as_tensor(np.asarray(CW_idx, np.int32), device=dev)
+    q = _as_rows(Query, dev)
+    k = min(K, codes.shape[0])
+    return _timed_scan(lambda x: pq_search(PQCodebook(cw), codes, x, k), q, warmup)
+
+
+def matching_PQ_Net_bucket(K, Codewords, Query, N_books, CW_idx, Gallery_features,
+                           n_buckets=10, warmup=True, device="cuda"):
+    """Coarse-bucketed ADC: k-means buckets over the raw gallery features
+    (``ops.kmeans.kmeans_fit``'s default seed, its draws from the
+    ``_init_centers`` seam) pick each query's bucket, and ADC ranks that
+    bucket only; a bucket of fewer than ``K`` rows pads with -1, as the
+    reference does. ``warmup`` is accepted for the JAX signature (it times
+    no warm-up either)."""
+    dev = resolve_device(device)
+    centers, labels = kmeans.kmeans_fit(_as_rows(Gallery_features, dev), n_buckets, iters=20)
+    return pq_net_bucket_search(K, Codewords, _as_rows(Query, dev), N_books, CW_idx, centers,
+                                labels.cpu().numpy())
+
+
+def pq_net_bucket_search(K, Codewords, q, N_books, CW_idx, centers, labels):
+    """The search half of ``matching_PQ_Net_bucket`` over given buckets
+    (``centers`` on the queries' device, host ``labels``): codes are laid
+    out bucket-major, so each query scans one contiguous window of the
+    longest bucket's length. Returns ``(idx (Q, K) int64, seconds per
+    query)``, the clock around the scan."""
+    dev = q.device
+    n_buckets = centers.shape[0]
+    qbucket = kmeans._assign(q, centers).cpu().numpy()
+    cw = codewords_from_flat(_as_rows(Codewords, dev), N_books)
+    codes = np.asarray(CW_idx, np.int32)
+    dt = pq_dist_table(PQCodebook(cw), q)                      # (Q, M, Ks)
+
+    order = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=n_buckets)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    maxlen = int(counts.max())
+    sorted_codes = np.zeros((starts[-1] + counts[-1] + maxlen, N_books), np.int32)
+    sorted_codes[: codes.shape[0]] = codes[order]
+    k_eff = min(K, maxlen)
+
+    t1 = time.perf_counter()
+    slots = torch.arange(maxlen, device=dev)
+    win = torch.as_tensor(starts[qbucket], device=dev)[:, None] + slots[None, :]
+    cand = codes_long(torch.as_tensor(sorted_codes, device=dev))[win]   # (Q, maxlen, M)
+    length = torch.as_tensor(counts[qbucket], device=dev)
+    s = torch.where(slots[None, :] < length[:, None], -adc(dt, cand), float("-inf"))
+    top_s, sel = _top_exact(s, k_eff)
+    top_s, pos = top_s.cpu().numpy(), win.gather(1, sel).cpu().numpy()
+    idx = np.full((q.shape[0], K), -1, np.int64)
+    idx[:, :k_eff] = np.where(np.isfinite(top_s), order[np.minimum(pos, len(order) - 1)], -1)
+    t2 = time.perf_counter()
+    return idx, (t2 - t1) / q.shape[0]
+
+
+MATCHERS["PQ_Net"] = matching_PQ_Net

@@ -4,8 +4,16 @@ Port of ``image_search_engine_for_historical_research_tpu/models/retrieval.py``
 (:36-202): ResNet+SOA features -> (optional local whitening) -> pooling (GeM
 by default, learnable ``p``) -> L2N -> (optional whitening Linear D->D) ->
 L2N, returning row-major ``(B, D)`` descriptors; plus the reference's ``meta``
-contract. Regional pooling (``regional=True``) and R-MAC are not ported yet
-and raise.
+contract. Poolings: ``gem``, ``gemmp``, ``mac``, ``spoc`` and ``rmac``.
+
+``regional=True`` is the reference's ``Rpool`` head (JAX :83-111): the base
+pooler runs over the full map and every R-MAC grid region
+(``ops.pooling.roipool``); each region vector is L2-normalized, whitened by
+one shared Linear(D, D) (``pool.whiten``, Flax ``rwhiten``), normalized
+again, and the regions are summed and normalized. GeM's ``p`` is shared by
+all regions (``pool.rpool.p``). The region grid assumes full-extent maps, so
+a masked (padded) batch raises, as in JAX; R-MAC pooling ignores the mask,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +46,18 @@ class GeM(nn.Module):
         self.p = nn.Parameter(torch.full((channels,), float(p)))
 
 
+class Rpool(nn.Module):
+    """The regional head's parameters in the checkpoint layout: GeM's ``p``
+    as ``pool.rpool.p`` (GeM and GeMmp only) and the shared region whitening
+    ``pool.whiten``."""
+
+    def __init__(self, pooling: str, p: float, dim: int = FEATURE_DIM):
+        super().__init__()
+        if pooling in ("gem", "gemmp"):
+            self.rpool = GeM(p, dim if pooling == "gemmp" else 1)
+        self.whiten = nn.Linear(dim, dim)
+
+
 class SolarRetrieval(nn.Module):
     """features -> pool -> l2n -> whiten -> l2n, on NHWC images + mask."""
 
@@ -53,32 +73,46 @@ class SolarRetrieval(nn.Module):
         compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if regional:
-            raise NotImplementedError(
-                "regional (Rpool) retrieval is not ported yet (ROADMAP section 1)"
-            )
-        if pooling not in ("gem", "gemmp", "mac", "spoc"):
-            raise NotImplementedError(f"pooling {pooling!r} is not ported yet")
+        base = ("gem", "gemmp", "mac", "spoc")
+        if pooling not in (base if regional else base + ("rmac",)):
+            kind = "regional base pooling" if regional else "pooling"
+            raise ValueError(f"unsupported {kind}: {pooling}")
         self.pooling = pooling
+        self.regional = regional
         self.features = ResNetSOA(architecture, soa_layers, compute_dtype)
         if local_whitening:
             self.lwhiten = nn.Linear(FEATURE_DIM, FEATURE_DIM)
-        if pooling in ("gem", "gemmp"):
+        if regional:
+            self.pool = Rpool(pooling, p_init)
+        elif pooling in ("gem", "gemmp"):
             self.pool = GeM(p_init, FEATURE_DIM if pooling == "gemmp" else 1)
         if whitening:
             self.whiten = nn.Linear(FEATURE_DIM, FEATURE_DIM)
+
+    def _base_pool(self, feats, mask=None):
+        if self.pooling in ("gem", "gemmp"):
+            p = self.pool.rpool.p if self.regional else self.pool.p
+            return pooling.gem(feats, p, mask=mask)
+        if self.pooling == "mac":
+            return pooling.mac(feats, mask=mask)
+        if self.pooling == "spoc":
+            return pooling.spoc(feats, mask=mask)
+        return pooling.rmac(feats)       # the grid assumes full-extent maps
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         feats, fmask = self.features(x, mask)
         feats = feats.float()  # the head always runs f32
         if hasattr(self, "lwhiten"):
             feats = self.lwhiten(feats)
-        if self.pooling in ("gem", "gemmp"):
-            v = pooling.gem(feats, self.pool.p, mask=fmask)
-        elif self.pooling == "mac":
-            v = pooling.mac(feats, mask=fmask)
+        if self.regional:
+            if fmask is not None:
+                raise ValueError("regional pooling does not support masked (padded) "
+                                 "batches; extract same-size batches instead")
+            o = normalization.l2n(pooling.roipool(feats, self._base_pool))   # (B, R, D)
+            o = normalization.l2n(self.pool.whiten(o))
+            v = normalization.l2n(o.sum(dim=1))
         else:
-            v = pooling.spoc(feats, mask=fmask)
+            v = self._base_pool(feats, fmask)
         v = normalization.l2n(v)
         if hasattr(self, "whiten"):
             v = normalization.l2n(self.whiten(v))

@@ -9,10 +9,12 @@ package's Flax variable tree ``{"params", "batch_stats"}`` of numpy arrays:
 - ``from_flax_variables``: Flax tree -> port ``state_dict`` (the exact inverse
   of the JAX ``convert_solar_state_dict``);
 - ``to_flax_variables``: port ``state_dict`` -> Flax tree (the port's own copy
-  of ``convert_solar_state_dict`` for the non-regional nets it runs).
+  of ``convert_solar_state_dict``).
 
 Layouts: Flax conv ``(kh, kw, I, O)`` <-> torch ``(O, I, kh, kw)``; Flax Dense
 ``(I, O)`` <-> torch Linear ``(O, I)``; GeM ``p`` 0-d <-> ``pool.p`` ``(1,)``.
+A regional net (JAX :124-131) keeps its ``p`` at ``pool.rpool.p`` and its
+region whitening, Flax ``rwhiten``, at ``pool.whiten``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator:
 
 def _torch_module(path: Tuple[str, ...]) -> str:
     """Flax module path (without the leaf) -> torch module name."""
+    if path[0] == "rwhiten":
+        return "pool.whiten"
     if path[0] != "features":
         return path[0]                                   # whiten, lwhiten
     mod = path[1]
@@ -67,11 +71,13 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     """Flax ``{"params", "batch_stats"}`` tree (numpy or array-likes) -> a
     ``state_dict`` for ``SolarRetrieval.load_state_dict(strict=True)``."""
     sd: Dict[str, torch.Tensor] = {}
+    regional = "rwhiten" in variables.get("params", {})
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
             arr = np.asarray(value, np.float32)
             if path == ("gem_p",):
-                sd["pool.p"] = torch.from_numpy(arr.reshape(-1).copy())
+                key = "pool.rpool.p" if regional else "pool.p"
+                sd[key] = torch.from_numpy(arr.reshape(-1).copy())
                 continue
             module, leaf = _torch_module(path[:-1]), path[-1]
             if leaf == "kernel":
@@ -85,6 +91,8 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 
 def _flax_module(module: str) -> Tuple[str, ...]:
     """torch module name -> Flax module path (inverse of ``_torch_module``)."""
+    if module == "pool.whiten":
+        return ("rwhiten",)
     parts = module.split(".")
     if parts[0] != "features":
         return (parts[0],)
@@ -107,7 +115,7 @@ def to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         arr = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
-        if key == "pool.p":
+        if key in ("pool.p", "pool.rpool.p"):
             out["params"]["gem_p"] = arr.reshape(()) if arr.size == 1 else arr
             continue
         module, name = key.rsplit(".", 1)

@@ -16,6 +16,10 @@ answers each link of that chain (details at the top of the source):
   enters, so a pop never waits on device memory for the next row (where this
   cache does not fit in shared memory, the wrapper launches without it and
   the pop reads the row from device memory);
+- the visited bitset lives in shared memory, and where it does not fit there
+  (N above about 1.79M at D = 2048), in a zeroed device-memory buffer of the
+  wrapper's, one row a query, launched in query chunks of at most
+  ``VISITED_BYTES``;
 - each scoring warp issues all of a 2048-wide row's 16-byte loads before its
   first FMA, so a hop's rows cost one round trip per row a warp takes;
 - warp 0 keeps the beam's distances as order-preserving uint32 keys in
@@ -42,6 +46,7 @@ import torch
 INF = float(np.float32(3.4e38))  # the TPU kernel's sentinel, exact in f32
 SMEM_LIMIT = 232448              # bytes of shared memory one block may use (H100)
 MAX_EF_PAD = 2048                # the kernel keeps ef_pad / 32 beam slots a lane in registers
+VISITED_BYTES = 1 << 30          # device-memory visited bitsets one launch may take
 
 # per-block slots of ``beam_search_phase_clocks``: clock64() cycles of warp 0's
 # neighbour-row and visited phase (A), of the row distances (B, the longest
@@ -100,13 +105,13 @@ def check_ef(ef: int) -> int:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a loaded beam-search library."""
-    lib.beam_search_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.beam_search_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.beam_search_smem_bytes.restype = ctypes.c_size_t
     head = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-    lib.beam_search_launch.argtypes = head + [ctypes.c_void_p] * 3
+    lib.beam_search_launch.argtypes = head + [ctypes.c_void_p] * 4
     lib.beam_search_launch.restype = ctypes.c_int
     if hasattr(lib, "beam_search_launch_clocks"):
-        lib.beam_search_launch_clocks.argtypes = head + [ctypes.c_void_p] * 4
+        lib.beam_search_launch_clocks.argtypes = head + [ctypes.c_void_p] * 5
         lib.beam_search_launch_clocks.restype = ctypes.c_int
     lib.beam_search_error_string.argtypes = [ctypes.c_int]
     lib.beam_search_error_string.restype = ctypes.c_char_p
@@ -131,21 +136,29 @@ def beam_search_phase_clocks(db, nbr0, queries, starts, ef: int = 100, max_steps
 
 
 def shared_memory_plan(N: int, D: int, m0: int, ef_pad: int):
-    """``(cache, bytes)`` of a launch: with the neighbour-row cache where a
-    block's shared memory holds it, else without; raises for an N that fits
-    neither way. Needs the kernel's library (the card's toolkit)."""
+    """``(cache, smem_visited, bytes)`` of a launch, from the kernel's own
+    ``beam_search_smem_bytes``: the visited bitset in shared memory with the
+    neighbour-row cache, then without it, then the bitset in device memory
+    with the cache, then without; raises where not even the query row and
+    the beam fit. Needs the kernel's library (the card's toolkit)."""
     lib = _library()
-    for cache in (1, 0):
-        smem = lib.beam_search_smem_bytes(N, D, m0, ef_pad, cache)
-        if smem <= SMEM_LIMIT:
-            return cache, smem
-    n_max = (SMEM_LIMIT - lib.beam_search_smem_bytes(0, D, m0, ef_pad, 0)) // 4 * 32
+    for smem_visited in (1, 0):
+        for cache in (1, 0):
+            smem = lib.beam_search_smem_bytes(N, D, m0, ef_pad, cache, smem_visited)
+            if smem <= SMEM_LIMIT:
+                return cache, smem_visited, smem
     raise ValueError(
-        f"beam_search: N={N} needs {smem} bytes of shared memory for the "
-        "visited bitset, query row and candidates; a block has "
-        f"{SMEM_LIMIT}, so N <= {n_max} at D={D}, m0={m0}, ef_pad={ef_pad}. "
-        "A visited set for larger N is an open ROADMAP item."
+        f"beam_search: D={D}, m0={m0}, ef_pad={ef_pad} need {smem} bytes of shared "
+        f"memory for the query row, beam and candidates; a block has {SMEM_LIMIT}"
     )
+
+
+def query_chunk(Q: int, N: int, smem_visited: int) -> int:
+    """Queries one launch takes: all of them with the bitset in shared memory,
+    else as many as ``VISITED_BYTES`` of device-memory bitsets hold."""
+    if smem_visited:
+        return max(Q, 1)
+    return max(1, min(Q, VISITED_BYTES // (4 * ((N + 31) // 32))))
 
 
 def _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps, with_clocks=False):
@@ -174,30 +187,38 @@ def _beam_search_cuda(db, nbr0, queries, starts, ef, max_steps, with_clocks=Fals
                          "16-byte aligned db and query rows")
     ef_pad = check_ef(ef)
     max_steps = max_steps or 4 * ef
-    cache, _ = shared_memory_plan(N, D, m0, ef_pad)
+    cache, smem_visited, _ = shared_memory_plan(N, D, m0, ef_pad)
     lib = _library("beam_search_clocks" if with_clocks else "beam_search")
     out_ids = torch.empty((Q, ef_pad), dtype=torch.int32, device=dev)
     out_d = torch.empty((Q, ef_pad), dtype=torch.float32, device=dev)
     clocks = (torch.zeros((Q, len(CLOCK_SLOTS)), dtype=torch.int64, device=dev)
               if with_clocks else None)
-    if Q == 0:
-        return _sorted_output(out_d, out_ids, ef) + ((clocks,) if with_clocks else ())
-    args = [db.data_ptr(), int(db.dtype == torch.bfloat16), nbr0.data_ptr(),
-            queries.data_ptr(), starts.data_ptr(), N, D, m0, Q, ef_pad,
-            max_steps, cache, out_ids.data_ptr(), out_d.data_ptr()]
+    chunk = query_chunk(Q, N, smem_visited)
+    visited = (None if smem_visited else
+               torch.empty((chunk, (N + 31) // 32), dtype=torch.int32, device=dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if with_clocks:
-            rc = lib.beam_search_launch_clocks(*args, clocks.data_ptr(), stream)
-        else:
-            rc = lib.beam_search_launch(*args, stream)
-    if rc != 0:
-        msg = lib.beam_search_error_string(rc).decode()
-        raise RuntimeError(f"beam_search kernel launch failed: CUDA error {rc} ({msg})")
+        for q0 in range(0, Q, chunk):
+            qn = min(chunk, Q - q0)
+            if visited is not None:
+                visited.zero_()
+            args = [db.data_ptr(), int(db.dtype == torch.bfloat16), nbr0.data_ptr(),
+                    queries[q0:].data_ptr(), starts[q0:].data_ptr(), N, D, m0, qn,
+                    ef_pad, max_steps, cache,
+                    None if visited is None else visited.data_ptr(),
+                    out_ids[q0:].data_ptr(), out_d[q0:].data_ptr()]
+            if with_clocks:
+                rc = lib.beam_search_launch_clocks(*args, clocks[q0:].data_ptr(), stream)
+            else:
+                rc = lib.beam_search_launch(*args, stream)
+            if rc != 0:
+                msg = lib.beam_search_error_string(rc).decode()
+                raise RuntimeError(f"beam_search kernel launch failed: CUDA error {rc} ({msg})")
+            if not with_clocks:
+                with _count_lock:
+                    launches += 1
     if with_clocks:
         return _sorted_output(out_d, out_ids, ef) + (clocks,)
-    with _count_lock:
-        launches += 1
     return _sorted_output(out_d, out_ids, ef)
 
 

@@ -16,6 +16,7 @@ from image_search_engine_for_historical_research_tpu.ops.pallas_graph import (
 from image_search_engine_for_historical_research_tpu_torch.index import HNSWIndex
 from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
 from image_search_engine_for_historical_research_tpu_torch.ops.beam_search_cases import (
+    DEVICE_VISITED,
     EDGE_CASES,
     NO_CACHE,
     quarter_case,
@@ -110,6 +111,33 @@ def test_ef_limit():
             bs.check_ef(ef)
 
 
+def test_plain_matches_pallas_reach():
+    """``reach`` confines the neighbours and starts to that many nodes spread
+    over N (the device-bitset edge cases' graphs), and leaves the draws of
+    the other arrays as they were."""
+    db, nbr0, q, starts = quarter_case(13, 3000, 64, 16, 4, reach=120)
+    db0, nbr00, q0, _ = quarter_case(13, 3000, 64, 16, 4)
+    np.testing.assert_array_equal(db, db0)
+    np.testing.assert_array_equal(q, q0)
+    np.testing.assert_array_equal(nbr0 < 0, nbr00 < 0)
+    pool = np.unique(nbr0[nbr0 >= 0])
+    assert len(pool) <= 120 and pool.max() > 2000 and np.isin(starts, pool).all()
+    (sj, ij), (st, it) = _both(db, nbr0, q, starts, ef=128)
+    assert_beams_in_order(sj, ij, st, it)
+    assert np.isin(it.numpy()[it.numpy() >= 0], pool).all()
+
+
+@pytest.mark.parametrize("Q, N, smem_visited, want", [
+    (70, 1_000_000, 1, 70),                # bitset in shared memory: one launch
+    (0, 1_000_000, 1, 1),
+    (70, 1_787_777, 0, 70),                # 1 GiB holds 4,804 bitsets of 1.79M
+    (10_000, 1_787_777, 0, 4_804),
+    (5, 2 ** 33, 0, 1),                    # one bitset above the budget: one a launch
+])
+def test_query_chunk(Q, N, smem_visited, want):
+    assert bs.query_chunk(Q, N, smem_visited) == want
+
+
 def test_phase_clocks_need_the_card():
     db, nbr0, q, starts = (_t(a) for a in quarter_case(0, 50, 8, 8, 2))
     launches = bs.launches
@@ -165,8 +193,9 @@ def test_cuda_kernel_edge_cases(name):
     db, nbr0, q, starts = quarter_case(*args, **kw)
     db = torch.from_numpy(db).cuda().to(getattr(torch, dtype)).contiguous()
     nbr0, q, starts = (torch.from_numpy(a).cuda() for a in (nbr0, q, starts))
-    cache, _ = bs.shared_memory_plan(*db.shape, nbr0.shape[1], bs.padded_ef(ef))
+    cache, smem_visited, _ = bs.shared_memory_plan(*db.shape, nbr0.shape[1], bs.padded_ef(ef))
     assert bool(cache) == (name not in NO_CACHE)
+    assert bool(smem_visited) == (name not in DEVICE_VISITED)
     before = bs.launches
     s, i = bs.beam_search(db, nbr0, q, starts, ef=ef)
     torch.cuda.synchronize()
@@ -182,19 +211,42 @@ def test_cuda_kernel_edge_cases(name):
 
 @pytest.mark.cuda
 def test_cuda_kernel_limits():
-    """On the card: N above the shared-memory cap and ef above the register
-    beam raise, naming the limit; an N that fits only without the
-    neighbour-row cache launches without it."""
+    """On the card: ef above the register beam raises, naming the limit; an
+    N that fits only without the neighbour-row cache launches without it; an
+    N whose visited bitset does not fit in shared memory keeps it in device
+    memory, with the cache where that fits and without it at ef_pad 2048."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    n, d = 4_000_000, 8
-    db = torch.zeros(n, d, device="cuda")
-    nbr0 = torch.full((n, 32), -1, dtype=torch.int32, device="cuda")
+    d = 8
+    db = torch.zeros(1000, d, device="cuda")
+    nbr0 = torch.full((1000, 32), -1, dtype=torch.int32, device="cuda")
     q = torch.zeros(1, d, device="cuda")
     starts = torch.zeros(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match=r"so N <= \d+ at D=8, m0=32, ef_pad=128"):
-        bs.beam_search(db[:n], nbr0, q, starts, ef=100)
     with pytest.raises(ValueError, match="at most 2048"):
-        bs.beam_search(db[:1000], nbr0[:1000], q, starts, ef=2100)
-    assert bs.shared_memory_plan(1_700_000, d, 32, 128)[0] == 0
-    assert bs.shared_memory_plan(1_000_000, d, 32, 128)[0] == 1
+        bs.beam_search(db, nbr0, q, starts, ef=2100)
+    assert bs.shared_memory_plan(1_000_000, d, 32, 128)[:2] == (1, 1)
+    assert bs.shared_memory_plan(1_700_000, d, 32, 128)[:2] == (0, 1)
+    assert bs.shared_memory_plan(4_000_000, d, 32, 128)[:2] == (1, 0)
+    assert bs.shared_memory_plan(4_000_000, d, 32, 2048)[:2] == (0, 0)
+    assert bs.shared_memory_plan(1_787_776, 2048, 32, 128)[1] == 1
+    assert bs.shared_memory_plan(1_787_777, 2048, 32, 128)[:2] == (1, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_device_bitset_query_chunks(monkeypatch):
+    """On the card, with the bitset in device memory: a budget of one query's
+    bitset launches once a query, and the beams equal one launch's and the
+    plain version's, in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    args, kw, ef, _ = EDGE_CASES["visited_in_device_memory"]
+    db, nbr0, q, starts = (torch.from_numpy(a).cuda() for a in quarter_case(*args, **kw))
+    s1, i1 = bs.beam_search(db, nbr0, q, starts, ef=ef)
+    monkeypatch.setattr(bs, "VISITED_BYTES", 4 * ((db.shape[0] + 31) // 32))
+    before = bs.launches
+    s, i = bs.beam_search(db, nbr0, q, starts, ef=ef)
+    torch.cuda.synchronize()
+    assert bs.launches == before + q.shape[0]
+    assert torch.equal(i, i1) and torch.equal(s, s1)
+    s2, i2 = bs.beam_search_reference(db, nbr0, q, starts, ef=ef)
+    assert_beams_in_order(s2.cpu(), i2.cpu(), s.cpu(), i.cpu())

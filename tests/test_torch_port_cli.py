@@ -27,6 +27,7 @@ from image_search_engine_for_historical_research_tpu.evaluation.ranks import (
     load_ranked_results as j_load_ranked,
 )
 from image_search_engine_for_historical_research_tpu.index import load_index as j_load_index
+from image_search_engine_for_historical_research_tpu.index import matchers as j_matchers
 from image_search_engine_for_historical_research_tpu.index.matchers import (
     matching_L2 as j_matching_L2,
 )
@@ -54,6 +55,7 @@ from image_search_engine_for_historical_research_tpu_torch.models import from_fl
 from torch_port_helpers import (  # noqa: F401  (one_torch_thread is a fixture)
     ONE_BLOCK,
     assert_same_arrays,
+    jax_forest_draws,
     one_block_arch,
     one_torch_thread,
     perturbed_variables,
@@ -288,13 +290,114 @@ def test_custom_map_and_saved_ranks_match_jax(collection, tmp_path, monkeypatch,
                 == (tmp_path / "jax" / "ranks" / name).read_text())
 
 
+def _spy_dispatch(monkeypatch, module, seen):
+    """Record what ``module.dispatch_matcher`` returns."""
+    fn = module.dispatch_matcher
+
+    def spy(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(module, "dispatch_matcher", spy)
+
+
 @pytest.mark.parametrize("cli", ["offline", "benchmark"])
-def test_unported_matching_method_exits_at_start(cli, tmp_path):
-    argv = ["--datasets", "coll", "--data-root", str(tmp_path), "--device", "cpu",
-            "--matching-method", "L2_int8"]
-    main = t_offline.main if cli == "offline" else t_benchmark.main
-    with pytest.raises(SystemExit, match="remaining matchers"):
-        main(argv)
+def test_unported_matching_method_exits_at_start(cli, tmp_path, monkeypatch):
+    """``L2_int8`` through the port's ``cli.offline`` (stored features, its
+    probe query's ids) and ``cli.benchmark`` (ranks and revisited mAP), held
+    to the JAX CLI's and matcher's."""
+    if cli == "offline":
+        rng = np.random.default_rng(4)
+        feats = rng.standard_normal((120, 64)).astype(np.float32)
+        argv = ["--datasets", "coll", "--data-root", str(tmp_path), "--ifextracted",
+                "--matching-method", "L2_int8", "--K", "9", "--loader", "pil"]
+        seen_j, seen_t = [], []
+        _spy_dispatch(monkeypatch, j_offline, seen_j)
+        _spy_dispatch(monkeypatch, t_offline, seen_t)
+        for side, main, extra in (("jax", j_offline.main, []),
+                                  ("torch", t_offline.main, ["--device", "cpu"])):
+            save_path_feature("coll", feats, [f"c/{i}" for i in range(120)],
+                              root=str(tmp_path / side))
+            assert main(argv + ["--outputs", str(tmp_path / side)] + extra) == 0
+        assert seen_t[0].shape == (1, 9) and seen_t[0][0, 0] == 0
+        np.testing.assert_array_equal(seen_t[0], seen_j[0])
+        return
+    db, q, gnd, argv = _revisited(tmp_path)
+    out = t_benchmark.run(t_benchmark.build_parser().parse_args(
+        argv + ["--matching-method", "L2_int8"]))["roxford5k"]
+    ranks_j, _ = j_matchers.matching_L2_int8(len(db), db, q)
+    np.testing.assert_array_equal(out["ranks"], ranks_j)
+    _assert_same_map(out["map"], j_compute_map_revisited(ranks_j, gnd, "roxford5k"))
+
+
+@pytest.mark.parametrize("method", ["ANNOY", "fractional", "LSH", "Greedyhash"])
+def test_new_methods_through_offline_match_jax(tmp_path, monkeypatch, method):
+    """Each of the remaining matchers through ``cli.offline --ifextracted
+    --ifgenerate`` (the JAX CLI's matcher arguments), with JAX's random draws
+    substituted at the port's seams: the probe query's ids equal JAX's, and
+    the JAX package loads the forest the port wrote."""
+    from image_search_engine_for_historical_research_tpu.ops import hashing as j_hashing
+    from image_search_engine_for_historical_research_tpu_torch.index import rpforest as t_rp
+    from image_search_engine_for_historical_research_tpu_torch.ops import hashing as t_hashing
+
+    monkeypatch.setattr(t_rp, "_level_draws", jax_forest_draws)
+    monkeypatch.setattr(t_hashing, "lsh_hyperplanes", lambda dim, n_bits, seed=42, device="cuda":
+                        torch.from_numpy(np.array(j_hashing.lsh_hyperplanes(dim, n_bits, seed))))
+    rng = np.random.default_rng(6)
+    centers = rng.standard_normal((6, 64))
+    feats = (centers[rng.integers(0, 6, 150)] + 0.4 * rng.standard_normal((150, 64)))
+    feats = feats.astype(np.float32)
+    argv = ["--datasets", "coll", "--data-root", str(tmp_path), "--ifextracted", "--ifgenerate",
+            "--matching-method", method, "--K", "12"]
+    seen_j, seen_t = [], []
+    _spy_dispatch(monkeypatch, j_offline, seen_j)
+    _spy_dispatch(monkeypatch, t_offline, seen_t)
+    for side, main, extra in (("jax", j_offline.main, []),
+                              ("torch", t_offline.main, ["--device", "cpu"])):
+        save_path_feature("coll", feats, [f"c/{i}" for i in range(150)], root=str(tmp_path / side))
+        assert main(argv + ["--outputs", str(tmp_path / side)] + extra) == 0
+    np.testing.assert_array_equal(seen_t[0], seen_j[0])
+    if method == "ANNOY":
+        # each package normalizes the rows itself (last bits differ), so the
+        # planes' bf16 bits may differ at a rounding boundary
+        got = j_load_index(str(tmp_path / "torch" / "coll" / "rpforest")).to_arrays()[1]
+        want = j_load_index(str(tmp_path / "jax" / "coll" / "rpforest")).to_arrays()[1]
+        assert_same_arrays(want, got, atol=1e-5, skip=("planes_bf16",))
+
+
+@pytest.mark.parametrize("cli", ["offline", "online"])
+@pytest.mark.parametrize("loader", ["pil", "native"])
+def test_loader_flag(collection, tmp_path, cli, loader):
+    """``--loader pil`` is taken as the JAX CLIs take it; ``--loader native``
+    exits at start-up, naming the ROADMAP item that ports the native loader."""
+    root, data, paths, common = collection
+    if cli == "offline":
+        argv = ["--datasets", "coll", "--matching-method", "L2", "--outputs", str(tmp_path),
+                "--device", "cpu", "--loader", loader] + common
+        if loader == "native":
+            with pytest.raises(SystemExit, match="native JPEG loader"):
+                t_offline.main(argv)
+            return
+        with one_block_arch():
+            assert t_offline.main(argv) == 0
+        ref, _ = j_load_features("coll", root=str(root / "jax_out"))
+        np.testing.assert_allclose(load_path_features("coll", root=str(tmp_path))[0], ref,
+                                   rtol=0, atol=1e-4)
+        return
+    argv = ["--datasets", "coll", "--outputs", str(root / "jax_out"), "--matching-method", "L2",
+            "--K", str(K), "--device", "cpu", "--loader", loader] + common
+    args = t_online.build_parser().parse_args(argv)
+    if loader == "native":
+        with pytest.raises(SystemExit, match="native JPEG loader"):
+            t_online.make_service(args)
+        return
+    with one_block_arch():
+        svc = t_online.make_service(args)
+    try:
+        assert [r["id"] for r in svc.query_image(paths[2])[0]][0] == 2
+    finally:
+        svc.close()
 
 
 def _pq_stores(root, collection_root):

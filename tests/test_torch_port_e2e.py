@@ -7,6 +7,7 @@ kernel route in interpret mode (``search_pallas``), the route the port's
 ``HNSWIndex.search`` takes by default (its kernel's plain version on CPU).
 """
 
+import copy
 import io
 import json
 import os
@@ -19,7 +20,11 @@ import torch
 
 from image_search_engine_for_historical_research_tpu.cli import online as j_online
 from image_search_engine_for_historical_research_tpu.data import save_path_feature
+from image_search_engine_for_historical_research_tpu.index import build_flat_i8 as j_build_flat_i8
 from image_search_engine_for_historical_research_tpu.index import build_hnsw as j_build
+from image_search_engine_for_historical_research_tpu.index import (
+    build_rpforest as j_build_rpforest,
+)
 from image_search_engine_for_historical_research_tpu.index import save_index as j_save
 from image_search_engine_for_historical_research_tpu.index.base import (
     normalize_rows as j_normalize_rows,
@@ -30,6 +35,8 @@ from image_search_engine_for_historical_research_tpu_torch.cli import online as 
 from image_search_engine_for_historical_research_tpu_torch.cli import (
     test_reranking as t_test_reranking,
 )
+from image_search_engine_for_historical_research_tpu_torch.data import load_path_features
+from image_search_engine_for_historical_research_tpu_torch.index import build_flat_i8
 from image_search_engine_for_historical_research_tpu_torch.models import from_flax_variables
 from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
 from image_search_engine_for_historical_research_tpu_torch.rerank import build_diffusion_offline
@@ -136,15 +143,36 @@ def test_wsgi_post_returns_same_ids(services):
                                     start_response))
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--matching-method", "ANNOY"], "remaining matchers"),
-    (["--matching-method", "L2_int8"], "remaining matchers"),
-])
-def test_unported_matching_methods_exit(services, extra, match):
-    *_, argv = services
-    args = t_online.build_parser().parse_args(argv + ["--device", "cpu"] + extra)
-    with pytest.raises(SystemExit, match=match):
-        t_online.make_service(args)
+@pytest.mark.parametrize("method", ["ANNOY", "L2_int8"])
+def test_unported_matching_methods_exit(services, method):
+    """Both methods are served with JAX's ids: ANNOY through ``cli.online``
+    from the forest the JAX package wrote; L2_int8 (which neither package's
+    ``cli.online`` serves) through a ``SearchService`` over each package's
+    ``build_flat_i8``."""
+    jsvc0, tsvc0, q_paths, argv = services
+    outputs = argv[argv.index("--outputs") + 1]
+    vecs, _ = load_path_features("db", root=outputs)
+    if method == "ANNOY":
+        j_save(j_build_rpforest(vecs, n_trees=4, leaf_size=4), os.path.join(outputs, "db",
+                                                                             "rpforest"))
+        sargv = argv + ["--matching-method", "ANNOY"]
+        with one_block_arch():
+            jsvc = j_online.make_service(j_online.build_parser().parse_args(sargv))
+            tsvc = t_online.make_service(
+                t_online.build_parser().parse_args(sargv + ["--device", "cpu"]))
+        assert type(tsvc.index).__name__ == "RPForestIndex"
+    else:
+        jsvc, tsvc = copy.copy(jsvc0), copy.copy(tsvc0)
+        jsvc.index = j_build_flat_i8(vecs)
+        tsvc.index = build_flat_i8(vecs, device="cpu")
+    try:
+        for p in q_paths:
+            assert _ids(tsvc.query_image(p)[0]) == _ids(jsvc.query_image(p)[0]), p
+        assert [_ids(r) for r, _ in tsvc.query_batch(q_paths)] == [
+            _ids(jsvc.query_image(p)[0]) for p in q_paths]
+    finally:
+        if method == "ANNOY":
+            tsvc.close()
 
 
 def test_unported_modes_raise(services, tmp_path):

@@ -78,12 +78,18 @@ def test_port_index_surface(vecs):
 
 
 def test_unported_kind_raises(tmp_path):
+    """Every kind the JAX package writes is registered; an unknown kind
+    raises, naming the registered ones."""
     import json
     import os
 
-    os.makedirs(tmp_path / "rpforest")
-    with open(tmp_path / "rpforest" / "manifest.json", "w") as f:
-        json.dump({"format_version": 1, "kind": "rpforest", "meta": {}}, f)
-    np.savez(tmp_path / "rpforest" / "arrays.npz", x=np.zeros(1))
-    with pytest.raises(ValueError, match="not ported"):
-        load_index(str(tmp_path / "rpforest"), device="cpu")
+    from image_search_engine_for_historical_research_tpu.index.base import _REGISTRY as j_kinds
+    from image_search_engine_for_historical_research_tpu_torch.index.base import _REGISTRY
+
+    assert set(j_kinds) <= set(_REGISTRY)
+    os.makedirs(tmp_path / "unknown")
+    with open(tmp_path / "unknown" / "manifest.json", "w") as f:
+        json.dump({"format_version": 1, "kind": "no_such_kind", "meta": {}}, f)
+    np.savez(tmp_path / "unknown" / "arrays.npz", x=np.zeros(1))
+    with pytest.raises(ValueError, match="unknown index kind 'no_such_kind'.*rpforest"):
+        load_index(str(tmp_path / "unknown"), device="cpu")

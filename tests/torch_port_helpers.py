@@ -211,3 +211,21 @@ def assert_same_ranks(s_ref, i_ref, s_got, i_got, tie=1e-5):
         tied = any(s_ref[r, j] == s_ref[r, p] or abs(s_ref[r, j] - s_ref[r, p]) <= tie * scale[r, p]
                    for j in near)
         assert tied or p == k - 1, (r, p, i_ref[r, p], i_got[r, p], s_ref[r])
+
+
+def jax_forest_draws(seed, n_trees, tree, level, N, n_segs, D):
+    """JAX's random draws of one RP-forest tree level
+    (``index/rpforest.py:42-60, :106-108, :286``), for the port's
+    ``index.rpforest._level_draws`` seam: the tree's key from
+    ``split(PRNGKey(seed), n_trees)``, then one ``key, sub = split(key)`` a
+    level and ``k1, k2 = split(sub)``."""
+    import jax
+    import torch
+
+    key = jax.random.split(jax.random.PRNGKey(seed), n_trees)[tree]
+    for _ in range(level + 1):
+        key, sub = jax.random.split(key)
+    k1, k2 = jax.random.split(sub)
+    return (torch.from_numpy(np.array(jax.random.uniform(k1, (N,)))),
+            torch.from_numpy(np.array(jax.random.uniform(k2, (N,)))),
+            torch.from_numpy(np.array(jax.random.normal(k2, (n_segs, D)))))
