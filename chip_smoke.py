@@ -26,9 +26,9 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    (``FlatIndex``, with the flat scan's time and byte bound); recall@10 >=
    0.95 through the kernel route and the lockstep route (``use_kernel=False``);
    the kernel against its plain version on that graph (same id sets), timed.
-   Then diffusion beyond the reference regime on those 1M bf16 rows:
-   ``build_diffusion_offline(kd=50, batch=1024, allow_large=True,
-   memory_budget_bytes=3 GiB, host_out=False, score_dtype=float16)`` (T=512,
+   Then diffusion beyond the reference regime on the first 500,000 of those
+   rows: ``build_diffusion_offline(kd=50, batch=1024, allow_large=True,
+   memory_budget_bytes=1.5 GiB, host_out=False, score_dtype=float16)`` (T=512,
    the recompute solver) with the kNN-graph and sweep seconds and the peak
    memory; 64 sampled rows solved again by the tables solver over the same
    kNN graph (at least 61 within 1e-3 of the row's largest score); the
@@ -44,7 +44,7 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    relative); ``adc+refine`` recall@100 at least ``adc``'s; the device ops
    (ADC scan, IVF probe, both refine re-ranks, both PQ walks, the encode
    pass) timed beside their bounds, and the host expansion timed alone.
-   Then at 131,072 of the rows: two builds of ``build_pq`` and of
+   Then at 65,536 of the rows: two builds of ``build_pq`` and of
    ``build_ivfpq`` from one seed give identical arrays, and a streaming
    ``build_pq`` from device-tensor chunks equals the in-memory build.
 4. The global re-rankers at rParis6k's shape: 6,322 x 2048 clustered unit
@@ -80,7 +80,7 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    from 8 threads through ``CoalescingService(max_batch=8)``: each request's
    ids equal ``query_image``'s, fewer batches than requests, one launch a
    batch. Before that, the PQ family served: ``cli.offline --ifextracted
-   --ifgenerate`` with ``HNSW_NanoPQ --opq refine``, ``IVFPQ --refine-m 8``
+   --ifgenerate`` with ``HNSW_NanoPQ --opq refine --refine-m 8``, ``IVFPQ --refine-m 8``
    and ``PQ`` over both stores, each served by ``cli.online.make_service``:
    4 WSGI POSTs and a ``query_batch`` of the same 4 (equal ids), one query on
    a CPU service from the same artifact (equal ids), the PQ ops' calls
@@ -112,6 +112,27 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    and ``cli.retrieve --mode custom`` on the 16 JPEGs in label folders.
 7. Kernel and plain times at the served shapes (Q=1 and Q=32, ids equal in
    order), and the phase-clock split at Q=1.
+8. Offline extraction at scale and training (no beam-kernel path; the
+   kernel's count must stay 0): ``cli.extract_1m`` at full width over 256
+   synthetic 768 x 1024 JPEGs in a revisitop1m layout (``make_revisitop``,
+   the port's ``data.synthetic``): sharded with ``--limit`` at half, then
+   resumed at ``shard_resume_point``; one-shot; ``--bf16`` on the first
+   half; the resumed shards equal the one-shot rows (1e-4), bf16 keeps a
+   mean cosine >= 0.999, and ``build_pq(M=16, Ks=256)`` streamed from
+   ``chunked_feature_source`` equals the in-memory build. Decoding is PIL:
+   the card's machine has no libjpeg, so the native loader is not driven.
+   Then training from the served checkpoint (contrastive + SOS at lambda
+   10, AdamW lr 1e-6 wd 1e-6, 7-image tuples at 362 px): one frozen step on
+   the card against the CPU (f64: loss and every gradient; f32: the loss),
+   ``conv1``-``conv4_x`` without gradients; the ladder of
+   ``scripts/measure_train_kr.py`` (unfrozen, frozen, + bf16, + remat, at 10
+   tuples) with s/step (median of 10 CUDA-event steps after 2 warm-ups),
+   img/s, peak memory, FLOPs a step (``FlopCounterMode``) and ``mfu``
+   against 67 TFLOP/s f32 or 989 TFLOP/s bf16; remat's loss and gradients
+   against the step without it (rtol 1e-5, no higher peak); ``cli.train``
+   for 2 epochs with a held-out eval set, and stopped after epoch 0 and
+   resumed, under deterministic cuDNN (epoch-1 step losses equal at rtol
+   1e-4); one POST served from the trained checkpoint.
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
 before it (``ms``), and the same with a spin kernel queued ahead of the first
@@ -121,7 +142,8 @@ Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
 run: the HNSW and diffusion services and the coalesced batches), a
 ``{"rerank": {...}}`` line with the re-ranking phases' numbers, a
 ``{"pq": {...}}`` line with the PQ phases' numbers, a ``{"matchers":
-{...}}`` line with the remaining matchers' numbers, then the
+{...}}`` line with the remaining matchers' numbers, a ``{"slice7": {...}}``
+line with the extraction and training numbers, then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
@@ -779,10 +801,15 @@ def top_exact_rows(cases, flush):
     return out
 
 
+DIFFUSION_ROWS = 500_000    # of the 1M rows (cut for the script's time limit)
+
+
 def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
-    """Diffusion beyond the reference regime on the 1M bf16 rows: the
-    budgeted device artifact (T=512, recompute solver), n_check rows solved
-    again by the tables solver over the same kNN graph, the online pass."""
+    """Diffusion beyond the reference regime (120k rows) on ``vecs``, the
+    first ``DIFFUSION_ROWS`` of the 1M bf16 rows: the device artifact under a
+    budget of 3 GiB per 1M rows (T=512, recompute solver), n_check rows
+    solved again by the tables solver over the same kNN graph, the online
+    pass."""
     from image_search_engine_for_historical_research_tpu_torch.rerank import diffusion as dif
 
     n = vecs.shape[0]
@@ -791,16 +818,17 @@ def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     off = dif.build_diffusion_offline(vecs, kd=50, batch=1024, allow_large=True,
-                                      memory_budget_bytes=3 << 30, host_out=False,
+                                      memory_budget_bytes=(3 << 30) * n // N_BIG,
+                                      host_out=False,
                                       score_dtype=np.float16, stats=st)
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(st["solver"] == "recompute" and st["T"] == 512, f"1M diffusion build {st}")
+    check(st["solver"] == "recompute" and st["T"] == 512, f"diffusion build {st}")
     check(tuple(off.trunc_ids.shape) == (n, 512) and off.trunc_ids.dtype == torch.int32
-          and off.scores.dtype == torch.float16, "1M diffusion artifact shape or dtype")
-    check(bool(torch.isfinite(off.scores).all()), "1M diffusion artifact is not finite")
+          and off.scores.dtype == torch.float16, "diffusion artifact shape or dtype")
+    check(bool(torch.isfinite(off.scores).all()), "diffusion artifact is not finite")
     self_first = float((off.trunc_ids[:, 0] == torch.arange(n, device=dev)).float().mean())
-    check(self_first >= 0.999, f"1M diffusion: a row's support starts with itself {self_first}")
+    check(self_first >= 0.999, f"diffusion: a row's support starts with itself {self_first}")
 
     sims, ids = st.pop("knn")
     lap_nbr, lap_val = dif._laplacian_from_knn(sims, ids)
@@ -812,7 +840,7 @@ def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
            / x_tab.abs().amax(1).clamp(min=1e-30)).cpu()
     agree = int((err <= 1e-3).sum())
     del lap_nbr, lap_val
-    check(agree >= n_check - 3, f"1M diffusion: {agree} of {n_check} rows agree with the "
+    check(agree >= n_check - 3, f"diffusion: {agree} of {n_check} rows agree with the "
                                 f"tables solver within 1e-3 (worst {float(err.max())})")
 
     pick = torch.randperm(n, generator=g, device=dev)[:Q_BIG]
@@ -822,11 +850,11 @@ def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
     online_ms = time_ms(online, 5, flush)
     dense = online()
     check(tuple(dense.shape) == (Q_BIG, n) and bool(torch.isfinite(dense).all()),
-          "1M diffusion online scores")
+          "diffusion online scores")
     top1 = float((dense.argmax(1) == pick).float().mean())
     # the top-k of the diffusion callers on dense score rows (mostly exact
     # zeros): the 1M rows at k=100 and the served gallery's width at K=10
-    top_rec = top_exact_rows((("1M Q=70 k=100", dense, 100),
+    top_rec = top_exact_rows(((f"{n} Q=70 k=100", dense, 100),
                               ("4112 Q=1 k=10", dense[:1, :4112], 10),
                               ("4112 Q=4 k=10", dense[:4, :4112], 10)), flush)
     rec = {"n": n, "T": st["T"], "kd": 50, "batch": 1024, "solver": st["solver"],
@@ -836,7 +864,8 @@ def diffusion_1m_phase(vecs, dev, flush, card, n_check=64):
            "tables_check_rows": n_check, "tables_agree_1e-3": agree,
            "tables_worst_rel_err": float(err.max()), "online_queries": Q_BIG,
            "online_ms": online_ms, "online_top1_own_row": top1, "top_exact": top_rec}
-    print(f"diffusion at 1M bf16 beyond the regime: {json.dumps(rec)} ({card})", flush=True)
+    print(f"diffusion at {n} bf16 rows beyond the regime: {json.dumps(rec)} ({card})",
+          flush=True)
     del off, dense
     torch.cuda.empty_cache()
     return rec
@@ -1128,13 +1157,15 @@ def pq_1m_phase(vecs, dev, flush, card):
     return out
 
 
-def pq_determinism_phase(vecs, dev, card, rows=131_072):
+def pq_determinism_phase(vecs, dev, card, rows=65_536):
     """Two card builds from one seed give identical arrays (PQ, IVF-PQ and
     HNSW-PQ with the device graph builder and the node centroid sums), and
     streamed PQ builds equal the in-memory build given the same explicit
     ``train_sample``: normalized rows, OPQ on both levels, refine codes, from
     device bf16 chunks whose size is not on the build grid (host chunks:
-    the ``cuda`` tests)."""
+    the ``cuda`` tests). The fits use the 1M phase's Ks=8192 on ``rows``
+    rows: the checks are of identity, which the row count does not change,
+    and the script's time limit needs the cut."""
     from image_search_engine_for_historical_research_tpu_torch.index import (
         build_hnsw_pq,
         build_ivfpq,
@@ -1189,8 +1220,12 @@ def pq_serving_phase(offline, online, common, argv, paths, dev, card):
     from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
 
     out = {}
-    for method, extra in (("HNSW_NanoPQ", ["--opq", "refine"]), ("IVFPQ", ["--refine-m", "8"]),
-                          ("PQ", [])):
+    # refine codes of 8 bytes for both refine routes, a width cut: at
+    # HNSW_NanoPQ's default 32 its refine OPQ fit, sequential over the 32
+    # subspaces, spends the script's time limit on 4,112 rows (ROADMAP
+    # section 3); back to 32 when that fit is batched
+    for method, extra in (("HNSW_NanoPQ", ["--opq", "refine", "--refine-m", "8"]),
+                          ("IVFPQ", ["--refine-m", "8"]), ("PQ", [])):
         t0 = time.perf_counter()
         check(offline.main(["--datasets", "images,synthetic", "--ifextracted", "--ifgenerate",
                             "--matching-method", method] + extra + common) == 0,
@@ -1734,6 +1769,369 @@ def large_n_phase(bs, dev, flush, card):
     return out
 
 
+def make_revisitop(root, n_scenes=32, views=7, seed=7):
+    """A revisitop1m layout of ``n_scenes * (views + 1)`` synthetic scene
+    photographs of 768 x 1024 px, the size of revisitop1m's distractors
+    (``data.synthetic.make_scene_revisited``):
+    ``<root>/revisitop1m/jpg/*.jpg`` and the image list
+    ``<root>/revisitop1m/revisitop1m.txt``."""
+    from image_search_engine_for_historical_research_tpu_torch.data.synthetic import (
+        make_scene_revisited,
+    )
+
+    make_scene_revisited(root, dataset="revisitop1m", n_scenes=n_scenes, db_views=views,
+                         canvas=(960, 1280), crop=(768, 1024), seed=seed)
+    jpg = os.path.join(root, "revisitop1m", "jpg")
+    with open(os.path.join(root, "revisitop1m", "revisitop1m.txt"), "w") as f:
+        f.write("\n".join(sorted(os.listdir(jpg))))
+
+
+def extract_1m_phase(data_root, ckpt, tmp, card):
+    """``cli.extract_1m`` at full width (ResNet101-SOLAR, 1024 px, the CLI's
+    three default scales, batch 16) over the revisitop1m layout, decoding
+    with PIL: sharded (``--shard-size 128``) with ``--limit`` at half the
+    images, then resumed to the end; one-shot; ``--bf16`` on the first half.
+    The resumed shards equal the one-shot rows (1e-4); bf16 keeps a mean
+    cosine >= 0.999 to them; ``build_pq(M=16, Ks=256)`` from ``chunked_feature_source``
+    equals the in-memory build, array for array. (The native loader is not
+    driven here: the card's machine has no libjpeg, ``PERF.md`` section 4.)"""
+    from image_search_engine_for_historical_research_tpu_torch.cli import extract_1m
+    from image_search_engine_for_historical_research_tpu_torch.data import (
+        chunked_feature_relpaths,
+        chunked_feature_source,
+        load_path_features,
+        read_imlist,
+        shard_resume_point,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.index import build_pq
+
+    names = read_imlist(os.path.join(data_root, "revisitop1m", "revisitop1m.txt"))
+    n = len(names)
+    base = ["--data-root", data_root, "--network-path", ckpt, "--device", "cuda",
+            "--image-size", "1024", "--batch-size", "16", "--loader", "pil"]
+    out = {"images": n, "runs": {}}
+
+    def run(label, outputs, *extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        check(extract_1m.main(base + ["--outputs", outputs] + list(extra)) == 0,
+              f"cli.extract_1m {label} failed")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rows = int(extra[extra.index("--limit") + 1]) if "--limit" in extra else n
+        if label.endswith("resumed"):
+            rows -= n // 2
+        rec = {"images": rows, "s": secs, "img_per_s": rows / secs,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["runs"][label] = rec
+        print(f"cli.extract_1m {label}: {json.dumps(rec)} ({card})", flush=True)
+
+    sharded = os.path.join(tmp, "x1m_sharded")
+    run("sharded, --limit half", sharded, "--shard-size", "128", "--limit", str(n // 2))
+    check(shard_resume_point("revisitop1m", root=sharded) == n // 2, "resume point after --limit")
+    run("sharded, resumed", sharded, "--shard-size", "128")
+    check(shard_resume_point("revisitop1m", root=sharded) == n, "shards do not cover the images")
+    check(chunked_feature_relpaths("revisitop1m", root=sharded) == names, "shard paths")
+    chunks_fn, n_rows = chunked_feature_source("revisitop1m", root=sharded)
+    resumed = np.concatenate(list(chunks_fn()))
+    run("one-shot", os.path.join(tmp, "x1m_oneshot"))
+    run("one-shot --bf16, --limit half", os.path.join(tmp, "x1m_bf16"), "--bf16",
+        "--limit", str(n // 2))
+    rows = {k: load_path_features("revisitop1m", root=os.path.join(tmp, d))[0]
+            for k, d in (("f32", "x1m_oneshot"), ("bf16", "x1m_bf16"))}
+    err = float(np.abs(resumed - rows["f32"]).max())
+    cos_bf16 = np.sum(rows["bf16"] * rows["f32"][:n // 2], axis=1)
+    out["checks"] = {"resumed_vs_oneshot_max_abs": err,
+                     "bf16_cosine_mean": float(cos_bf16.mean()),
+                     "bf16_cosine_min": float(cos_bf16.min())}
+    check(n_rows == n and resumed.shape == (n, 2048) and np.isfinite(resumed).all(),
+          "bad shard rows")
+    check(err <= 1e-4, f"resumed shards vs one-shot: {err} > 1e-4")
+    check(float(cos_bf16.mean()) >= 0.999, f"bf16 mean cosine {float(cos_bf16.mean())}")
+
+    t0 = time.perf_counter()
+    streamed = build_pq(chunks_fn, n=n_rows, M=16, Ks=256, device="cuda")
+    stream_s = time.perf_counter() - t0
+    mem = build_pq(resumed, M=16, Ks=256, device="cuda")
+    a, b = streamed.to_arrays()[1], mem.to_arrays()[1]
+    check(set(a) == set(b), f"streamed PQ arrays {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        check(np.array_equal(np.asarray(a[k]), np.asarray(b[k])), f"streamed PQ array {k} differs")
+    out["checks"]["streamed_build_pq_equal"] = sorted(a)
+    out["checks"]["streamed_build_pq_s"] = stream_s
+    print(f"extract_1m phase: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+# the ladder of scripts/measure_train_kr.py: (label, frozen_stages, compute_dtype, remat, tuples)
+TRAIN_RUNGS = (
+    ("unfrozen", 0, None, False, 5),
+    ("frozen", 3, None, False, 5),
+    ("frozen+bf16", 3, torch.bfloat16, False, 5),
+    ("frozen+bf16+remat", 3, torch.bfloat16, True, 5),
+    ("frozen+bf16+remat x2 tuples", 3, torch.bfloat16, True, 10),
+)
+TRAIN_S, TRAIN_PX = 7, 362
+
+
+def _train_batch(n_tuples, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn((n_tuples * TRAIN_S, TRAIN_PX, TRAIN_PX, 3), device=dev, generator=g)
+    labels = torch.tensor([-1, 1] + [0] * (TRAIN_S - 2), dtype=torch.int32,
+                          device=dev).repeat(n_tuples)
+    return images, labels
+
+
+def _grads(module, images, labels):
+    from image_search_engine_for_historical_research_tpu_torch.train import make_loss_fn
+
+    module.zero_grad(set_to_none=True)
+    loss = make_loss_fn(module, TRAIN_S, "contrastive", 0.7, lambda_sos=10.0)(images, labels)
+    loss.backward()
+    return loss.detach(), {n: None if p.grad is None else p.grad.detach().clone()
+                           for n, p in module.named_parameters()}
+
+
+def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
+    """Training at full width: ResNet101-SOLAR from the served checkpoint,
+    contrastive + SOS (lambda 10), AdamW lr 1e-6 wd 1e-6, 7-image tuples at
+    362 px. One frozen step on the card against the CPU: in f64 the loss and
+    every gradient element, in f32 (TF32 off) the loss and every gradient
+    leaf in norm, against rtol 1e-3 or 4x the leaf's spread under a 1e-7
+    nudge of the input; the ladder of ``scripts/measure_train_kr.py``
+    (s/step, img/s, peak memory, FLOPs a step from ``FlopCounterMode``,
+    ``mfu``); remat's
+    gradients against the step without it; then ``cli.train`` end to end (2
+    epochs with a held-out eval set, and the same run stopped after epoch 0
+    and resumed, with deterministic cuDNN: equal epoch-1 losses), and one
+    POST served from the trained checkpoint."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from image_search_engine_for_historical_research_tpu_torch.cli import train as cli_train
+    from image_search_engine_for_historical_research_tpu_torch.cli.common import load_network
+    from image_search_engine_for_historical_research_tpu_torch.data.synthetic import (
+        make_folder_dataset,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
+    from image_search_engine_for_historical_research_tpu_torch.train import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    out = {"card_vs_cpu": {}, "ladder": {}}
+    frozen_prefixes = ("features.conv1.", "features.conv2_x.", "features.conv3_x.",
+                       "features.conv4_x.")
+
+    # one frozen step, 1 tuple x 7 images, on the card and on the CPU. In
+    # f64 (backbone and head; the weights are f32) every gradient is held
+    # element by element at rtol 1e-3 + atol 1e-6. In f32 (TF32 off) the
+    # loss is held at rtol 1e-4, and each gradient leaf in norm: within
+    # rtol 1e-3 (atol 1e-6 an element), or, where the step is too ill
+    # conditioned for that, within 4x the leaf's own spread when the input
+    # moves by a relative 1e-7, the larger of the card's and the CPU's. The
+    # served weights are random, so the SOA softmax is nearly one-hot and a
+    # 1e-7 nudge moves some leaves by percents on either device
+    model = load_network(ckpt, device=dev)
+    model.module.requires_grad_(True)
+    cpu = load_network(ckpt, device="cpu")
+    cpu.module.requires_grad_(True)
+    images, labels = _train_batch(1, dev, seed=1)
+    nudged = images.cpu() * (1 + 1e-7 * torch.randn(images.shape,
+                                                    generator=torch.Generator().manual_seed(5)))
+    runs = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        runs["gpu", dtype] = _grads(model.module.clone(frozen_stages=3, compute_dtype=dtype),
+                                    images, labels)
+        runs["cpu", dtype] = _grads(cpu.module.clone(frozen_stages=3, compute_dtype=dtype),
+                                    images.cpu(), labels.cpu())
+    runs["gpu nudged", torch.float32] = _grads(model.module.clone(frozen_stages=3),
+                                               nudged.to(dev), labels)
+    runs["cpu nudged", torch.float32] = _grads(cpu.module.clone(frozen_stages=3), nudged,
+                                               labels.cpu())
+    steps_s = time.perf_counter() - t0
+    del cpu
+    rec = {"steps_s": steps_s}
+    trainable = [n for n, g in runs["cpu", torch.float64][1].items() if g is not None]
+    check(sorted(set(runs["cpu", torch.float64][1]) - set(trainable))
+          == sorted(n for n in runs["cpu", torch.float64][1] if n.startswith(frozen_prefixes)),
+          "frozen step: the stem and conv2_x-conv4_x must have no gradient, the rest one")
+
+    def diff(a, b, n):
+        """``(||a - b||, ||b||)`` of leaf ``n``, in f64 on the host."""
+        ga, gb = runs[a][1][n].cpu().double(), runs[b][1][n].cpu().double()
+        return float((ga - gb).norm()), float(gb.norm())
+
+    def rel(a, b, n):
+        """``||a - b|| / ||b||``, the norm floored at an atol of 1e-6 an
+        element (leaves whose exact gradient is nearly zero)."""
+        d, ref = diff(a, b, n)
+        return d / max(ref, 1e-6 * runs[b][1][n].numel() ** 0.5)
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        (l_gpu, g_gpu), (l_cpu, _) = runs["gpu", dtype], runs["cpu", dtype]
+        check(sorted(n for n, g in g_gpu.items() if g is not None) == sorted(trainable),
+              f"frozen step ({tag}): the card's gradients are on other parameters")
+        check(abs(float(l_gpu) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu)),
+              f"frozen step ({tag}) loss: card {float(l_gpu)} CPU {float(l_cpu)}")
+        rec[tag] = {"loss_gpu": float(l_gpu), "loss_cpu": float(l_cpu),
+                    "params_without_grad": len(g_gpu) - len(trainable),
+                    "grad_norm_rel_max": max(rel(("gpu", dtype), ("cpu", dtype), n)
+                                             for n in trainable)}
+    g64, c64 = runs["gpu", torch.float64][1], runs["cpu", torch.float64][1]
+    worst = max((float(((g64[n].cpu() - c64[n]).abs() - (1e-6 + 1e-3 * c64[n].abs())).max()), n)
+                for n in trainable)
+    rec["f64"]["grad_worst_excess"] = worst[0]
+    check(worst[0] <= 0, f"frozen step (f64) gradient {worst[1]} off by {worst[0]} beyond "
+                         "rtol 1e-3 + atol 1e-6")
+    f32 = torch.float32
+    leaves = []
+    for n in trainable:
+        d, ref = diff(("gpu", f32), ("cpu", f32), n)
+        spread = max(rel(("gpu nudged", f32), ("gpu", f32), n),
+                     rel(("cpu nudged", f32), ("cpu", f32), n))
+        atol = 1e-6 * runs["cpu", f32][1][n].numel() ** 0.5
+        leaves.append((d / (atol + max(1e-3, 4 * spread) * ref), n, d <= atol + 1e-3 * ref))
+    worst32 = max(leaves)
+    rec["f32"].update({
+        "gpu_nudged_grad_norm_rel_max": max(rel(("gpu nudged", f32), ("gpu", f32), n)
+                                            for n in trainable),
+        "cpu_nudged_grad_norm_rel_max": max(rel(("cpu nudged", f32), ("cpu", f32), n)
+                                            for n in trainable),
+        "gpu_vs_cpu_f64_norm_rel_max": max(rel(("gpu", f32), ("cpu", torch.float64), n)
+                                           for n in trainable),
+        "cpu_vs_cpu_f64_norm_rel_max": max(rel(("cpu", f32), ("cpu", torch.float64), n)
+                                           for n in trainable),
+        "leaves_within_rtol_1e-3": sum(ok for *_, ok in leaves), "leaves": len(leaves),
+        "worst_share_of_limit": worst32[0], "worst_leaf": worst32[1]})
+    check(worst32[0] <= 1.0, f"frozen step (f32) gradient {worst32[1]} at {worst32[0]:.3f} of "
+                             "its limit (rtol 1e-3, or 4x its spread under a 1e-7 nudge)")
+    out["card_vs_cpu"] = rec
+    del runs, g64, c64
+    print(f"train card vs CPU: {json.dumps(out['card_vs_cpu'])} ({card})", flush=True)
+
+    # the ladder
+    module = model.module
+    for label, frozen, dtype, remat, tuples in TRAIN_RUNGS:
+        opt, sched, _ = make_optimizer(module, lr=1e-6, weight_decay=1e-6, exp_decay=0.0,
+                                       freeze_backbone=frozen > 0)
+        state = init_train_state(module, opt, sched)
+        step = make_train_step(module.clone(frozen_stages=frozen, compute_dtype=dtype,
+                                            remat=remat), TRAIN_S, lambda_sos=10.0)
+        images, labels = _train_batch(tuples, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            state, loss = step(state, images, labels)
+        times = []
+        for _ in range(10):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, loss = step(state, images, labels)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1) / 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with FlopCounterMode(display=False) as fc:
+            state, loss = step(state, images, labels)
+        flops = fc.get_total_flops()
+        s = statistics.median(times)
+        peak_rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        rec = {"tuples": tuples, "images": tuples * TRAIN_S, "px": TRAIN_PX,
+               "s_per_step": s, "img_per_s": tuples * TRAIN_S / s, "peak_gib": peak,
+               "tflop_per_step": flops / 1e12, "mfu": flops / s / peak_rate,
+               "peak_tflops": peak_rate / 1e12, "loss": float(loss)}
+        check(bool(torch.isfinite(loss)), f"{label}: loss {float(loss)}")
+        out["ladder"][label] = rec
+        print(f"train rung {label}: {json.dumps(rec)} ({card})", flush=True)
+        del opt, sched, state, step
+    module.zero_grad(set_to_none=True)
+
+    # remat against the same step without it
+    images, labels = _train_batch(5, dev, seed=2)
+    peaks = {}
+    res = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res[remat] = _grads(module.clone(frozen_stages=3, compute_dtype=torch.bfloat16,
+                                         remat=remat), images, labels)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+    (l0, g0), (l1, g1) = res[False], res[True]
+    check(abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0)), f"remat loss {l1} vs {l0}")
+    rerr = max(float(((g1[n] - g0[n]).abs() - 1e-5 * g0[n].abs()).max())
+               for n in g0 if g0[n] is not None)
+    check(rerr <= 0, f"remat gradients differ beyond rtol 1e-5 (excess {rerr})")
+    check(peaks[True] <= peaks[False], f"remat peak {peaks[True]} GiB above {peaks[False]}")
+    out["remat"] = {"loss": float(l0), "grad_excess": rerr, "peak_gib": peaks[True],
+                    "peak_gib_without": peaks[False]}
+    module.zero_grad(set_to_none=True)
+    del model, res, g0, g1
+    torch.cuda.empty_cache()
+
+    # cli.train end to end, then resumed, with deterministic cuDNN
+    train_root, eval_root = os.path.join(tmp, "train_data"), os.path.join(tmp, "eval_data")
+    make_folder_dataset(train_root, n_classes=16, per_class=6, n_queries_per_class=0,
+                        size=(288, 384), seed=3)
+    make_folder_dataset(eval_root, n_classes=8, per_class=4, n_queries_per_class=0,
+                        size=(288, 384), seed=4)
+    common = ["--training-dataset", os.path.join(train_root, "db"), "--network-path", ckpt,
+              "--sos", "--image-size", str(TRAIN_PX), "--query-size", "32",
+              "--test-datasets", os.path.join(eval_root, "db"), "--device", "cuda"]
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for label, argv_run in (
+                ("2 epochs", [os.path.join(tmp, "runs_full"), "--epochs", "2"]),
+                ("epoch 0", [os.path.join(tmp, "runs_resume"), "--epochs", "1"]),
+                ("resumed", [os.path.join(tmp, "runs_resume"), "--epochs", "2", "--resume"])):
+            t0 = time.perf_counter()
+            check(cli_train.main(argv_run + common) == 0, f"cli.train {label} failed")
+            runs[label] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    name = cli_train.run_name(cli_train.build_parser().parse_args(
+        [os.path.join(tmp, "runs_full")] + common))
+    logs = {}
+    for d in ("runs_full", "runs_resume"):
+        with open(os.path.join(tmp, d, name, "metrics.jsonl")) as f:
+            logs[d] = [json.loads(line) for line in f]
+    full, resumed = logs["runs_full"], logs["runs_resume"]
+    check([r["step"] for r in full] == [0, 1] == [r["step"] for r in resumed],
+          f"epochs logged: {[r['step'] for r in full]} / {[r['step'] for r in resumed]}")
+    a, b = np.asarray(full[1]["step_losses"]), np.asarray(resumed[1]["step_losses"])
+    check(a.shape == b.shape and a.size > 0 and np.allclose(b, a, rtol=1e-4, atol=0),
+          f"resumed epoch-1 losses {b.tolist()} vs uninterrupted {a.tolist()}")
+    eval_keys = sorted(k for k in full[1] if k.endswith("/mapM"))
+    check(eval_keys and all(0.0 <= full[e][k] <= 1.0 + 1e-9 for e in (0, 1) for k in eval_keys),
+          f"eval rows {eval_keys}")
+    out["cli_train"] = {"run_s": runs, "steps_per_epoch": len(full[0]["step_losses"]),
+                        "train_loss": [r["train_loss"] for r in full],
+                        "val_loss": [r["val_loss"] for r in full],
+                        "eval_mapM": [r[eval_keys[0]] for r in full],
+                        "resumed_epoch1_max_rel": float(np.max(np.abs(b - a) / np.abs(a)))}
+    print(f"cli.train: {json.dumps(out['cli_train'])} ({card})", flush=True)
+
+    # serve one POST from the trained checkpoint
+    trained = os.path.join(tmp, "runs_full", name, "epoch_1.pth")
+    targv = [a for a in argv]
+    targv[targv.index("--network-path") + 1] = trained
+    svc = online.make_service(online.build_parser().parse_args(targv + ["--device", "cuda"]))
+    res = post(make_wsgi_app(svc), os.path.join(data_root, "images", "img00.jpg"))
+    svc.close()
+    ids = [r["id"] for r in res["results"]]
+    check(len(ids) == 10, f"trained checkpoint served {ids}")
+    out["served_post"] = {"ids": ids, "timing": res["timing"]}
+    print(f"train phase: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -1756,6 +2154,16 @@ def main():
 
     dev = torch.device("cuda")
     card = card_line()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        """Run one phase, keeping its wall seconds for the ``phase_s`` line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {card}", flush=True)
@@ -1782,26 +2190,26 @@ def main():
         flush_buf.zero_()
 
     # 2. kernel against plain on the card
-    kres = kernel_phase(bs, beam_search_cases, dev, flush)
+    kres = timed("kernel", kernel_phase, bs, beam_search_cases, dev, flush)
 
     # 3. a device-built HNSW graph at 1M, then diffusion on its rows
-    graph_rec, big = graph_phase(bs, dev, flush, card)
-    diff_1m = diffusion_1m_phase(big, dev, flush, card)
+    graph_rec, big = timed("graph", graph_phase, bs, dev, flush, card)
+    diff_1m = timed("diffusion_1m", diffusion_1m_phase, big[:DIFFUSION_ROWS], dev, flush, card)
     torch.cuda.empty_cache()
 
     # the PQ family at 1M on the same rows, then determinism and streaming
-    pq_rec = pq_1m_phase(big, dev, flush, card)
-    pq_rec["determinism"] = pq_determinism_phase(big, dev, card)
+    pq_rec = timed("pq_1m", pq_1m_phase, big, dev, flush, card)
+    pq_rec["determinism"] = timed("pq_determinism", pq_determinism_phase, big, dev, card)
 
     # the remaining matchers on the same rows, then HNSW above the kernel's N limit
-    match_rec = matchers_1m_phase(big, dev, flush, card)
+    match_rec = timed("matchers_1m", matchers_1m_phase, big, dev, flush, card)
     del big
     torch.cuda.empty_cache()
-    match_rec["large_n"] = large_n_phase(bs, dev, flush, card)
+    match_rec["large_n"] = timed("large_n", large_n_phase, bs, dev, flush, card)
 
     # 4. the global re-rankers at rParis6k's shape, and k-reciprocal at 100k
-    rr = rerank_phase(dev, flush, card)
-    kr_large = kr_large_phase(dev, card)
+    rr = timed("rerank", rerank_phase, dev, flush, card)
+    kr_large = timed("kr_100k", kr_large_phase, dev, card)
 
     # 5. the main path through the entry points (6. the CLIs on stored features)
     rng = np.random.default_rng(0)
@@ -1912,14 +2320,27 @@ def main():
         cpu_l2.close()
         svc_l2.close()
 
-        pq_rec["serving"] = pq_serving_phase(offline, online, common, argv, paths, dev, card)
-        match_rec["serving"] = matchers_serving_phase(offline, online, common, argv, paths, card)
-        match_rec["regional"] = regional_phase(paths, dev, card)
+        pq_rec["serving"] = timed("pq_serving", pq_serving_phase, offline, online, common, argv,
+                                  paths, dev, card)
+        match_rec["serving"] = timed("matchers_serving", matchers_serving_phase, offline, online,
+                                     common, argv, paths, card)
+        match_rec["regional"] = timed("regional", regional_phase, paths, dev, card)
+
+        # slice 7: extraction at scale and training (no K1 path)
+        bs.launches = 0
+        timed("revisitop_layout", make_revisitop, os.path.join(tmp, "x1m_data"))
+        slice7 = {"extract_1m": timed("extract_1m", extract_1m_phase,
+                                     os.path.join(tmp, "x1m_data"), ckpt, tmp, card)}
+        slice7["train"] = timed("train", train_phase, online, ckpt, data_root, argv_l2, tmp, dev,
+                                card)
+        torch.cuda.synchronize()
+        check(bs.launches == 0, f"the slice-7 phases launched the beam kernel {bs.launches} times")
+        torch.cuda.empty_cache()
 
         d_launches, coalesce_rec = served_rerank_phase(
             bs, svc, lambda: online.make_service(online.build_parser().parse_args(
                 argv + ["--device", "cpu"])), gallery, paths, tmp, data_root, dev, card)
-        cli_rec = cli_phase(rr, tmp, paths, ckpt, dev, card)
+        cli_rec = timed("clis", cli_phase, rr, tmp, paths, ckpt, dev, card)
 
         # 7. the kernel at the served shapes: Q=1 (a POST) and Q=32 (the largest slot)
         qv = torch.as_tensor(gallery[:32], device=dev)
@@ -1963,6 +2384,8 @@ def main():
                                  "clis": cli_rec}}))
     print(json.dumps({"pq": pq_rec}))
     print(json.dumps({"matchers": match_rec}))
+    print(json.dumps({"slice7": slice7}))
+    print(json.dumps({"phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -8,4 +8,6 @@
 - ``test_reranking`` -- revisited mAP of each global re-ranking method.
 - ``test_custom``    -- folder-label mAP on custom folders, ranks saved on request.
 - ``retrieve``       -- ``benchmark`` or ``test_custom`` by ``--mode``.
+- ``extract_1m``     -- the resumable distractor extraction (one store, or shards).
+- ``train``          -- tuple training with hard-negative mining.
 """

@@ -90,15 +90,18 @@ def check_matcher(method: str) -> None:
 
 def add_loader_arg(parser: argparse.ArgumentParser):
     parser.add_argument("--loader", default="pil", choices=["pil", "native"],
-                        help="image decoding: pil; native (the threaded libjpeg loader) "
-                             "is not ported yet and exits")
+                        help="image decoding: pil, or native = the threaded libjpeg "
+                             "batch decoder (native/image_loader.cpp)")
 
 
-def check_loader(loader: str) -> None:
-    """Exit at start-up on ``--loader native``, which is not ported yet."""
-    if loader != "pil":
-        raise SystemExit(f"--loader {loader} is not ported yet: see ROADMAP section 1, "
-                         "item 2 (the native JPEG loader). The port decodes with --loader pil.")
+def load_decoder(loader: str) -> None:
+    """Build and load the native JPEG loader at start-up when ``loader`` is
+    ``"native"``: on a machine without libjpeg's header or library the CLI
+    fails here, with the compiler's or the dynamic loader's message."""
+    if loader == "native":
+        from ..native import load
+
+        load("image_loader")
 
 
 def dispatch_matcher(method: str, *args, **kwargs):

@@ -5,8 +5,7 @@ walk the dataset folders under ``--data-root``, extract multi-scale
 descriptors, save the feature store (or reuse it with ``--ifextracted``),
 then build the chosen matcher's index (``--ifgenerate`` rebuilds an existing
 artifact) and run one probe query through it. ``--loader pil`` decodes the
-images; ``--loader native`` (the threaded libjpeg loader) is not ported yet
-and exits at start-up.
+images with PIL, ``--loader native`` with the threaded libjpeg loader.
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.offline \
@@ -26,9 +25,9 @@ from ..models.extract import extract_vectors
 from .common import (
     add_common_args,
     add_loader_arg,
-    check_loader,
     check_matcher,
     dispatch_matcher,
+    load_decoder,
     load_network,
     matcher_kwargs,
     parse_scales,
@@ -52,7 +51,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     resolve_device(args.device)
     check_matcher(args.matching_method)
-    check_loader(args.loader)
+    load_decoder(args.loader)
     scales = parse_scales(args.multiscale)
     datasets = args.datasets.split(",")
 
@@ -67,7 +66,7 @@ def main(argv=None):
             paths, rel_paths = path_all_jpg(os.path.join(args.data_root, ds), args.data_root)
             print(f">> {ds}: extracting {len(paths)} images...")
             vecs = extract_vectors(model, paths, args.image_size, scales=scales,
-                                   batch_size=args.batch_size)
+                                   batch_size=args.batch_size, loader=args.loader)
             save_path_feature(ds, vecs, rel_paths, root=args.outputs)
         all_vecs.append(np.asarray(vecs))
         all_paths.extend(rel_paths)

@@ -4,9 +4,9 @@ Port of ``image_search_engine_for_historical_research_tpu/cli/online.py`` for
 ``--matching-method L2`` (a ``FlatIndex`` over the stored features, built at
 start-up), ``HNSW`` and the PQ family (``PQ``/``Nano_PQ``, ``PQ_HNSW``/
 ``HNSW_NanoPQ``, ``IVFPQ``, ``ANNOY``: the artifact ``cli.offline`` wrote, by
-the JAX package's kind map). ``--loader pil`` decodes the uploads;
-``--loader native`` is not ported yet and exits at start-up.
-``--coalesce MAX_BATCH``
+the JAX package's kind map). ``--loader native`` decodes the batched
+path's uploads with the threaded libjpeg loader (``--loader pil``, the
+default, with PIL). ``--coalesce MAX_BATCH``
 puts ``serving.batching.CoalescingService`` in front of the service and
 serves on a threaded server.
 
@@ -30,8 +30,8 @@ from ..serving.batching import CoalescingService
 from .common import (
     add_common_args,
     add_loader_arg,
-    check_loader,
     check_matcher,
+    load_decoder,
     load_network,
     parse_scales,
 )
@@ -65,7 +65,7 @@ def build_parser():
 def make_service(args) -> SearchService:
     resolve_device(args.device)
     check_matcher(args.matching_method)
-    check_loader(args.loader)
+    load_decoder(args.loader)
     datasets = args.datasets.split(",")
     vecs_l, paths = [], []
     for ds in datasets:
@@ -92,7 +92,7 @@ def make_service(args) -> SearchService:
         model, index, vecs, paths, K=args.K,
         scales=parse_scales(args.multiscale), image_size=args.image_size,
         rerank=not args.no_rerank, image_root=args.data_root,
-        device=args.device,
+        loader=args.loader, device=args.device,
     )
 
 

@@ -3,9 +3,8 @@
 Port of ``image_search_engine_for_historical_research_tpu/models/extract.py``
 (:24-113, :153-231). Resizes match ``jax.image.resize``: bilinear with
 antialiasing (it antialiases when it downscales) for images, ``nearest-exact``
-for the mask, sizes ``int(H * s)``. The native JPEG loader
-(``loader="native"``), batch padding for sharded extraction and the sharded
-extract function are not ported yet.
+for the mask, sizes ``int(H * s)``. The sharded extract function is not
+ported yet (multi-GPU, ROADMAP section 1, item 5).
 """
 
 from __future__ import annotations
@@ -79,16 +78,40 @@ def extract_vectors(
     bbxs=None,
     scales: Sequence[float] = (1.0,),
     batch_size: int = 16,
+    extract_fn=None,
+    loader: str = "pil",
 ) -> np.ndarray:
-    """Paths -> ``(N, D)`` f32 descriptors: test-mode PIL load (bbx crop +
+    """Paths -> ``(N, D)`` f32 descriptors: test-mode load (bbx crop +
     thumbnail), bucket into padded canvas batches with masks, run the
-    multi-scale extraction on ``model``'s device per batch."""
+    multi-scale extraction on ``model``'s device per batch.
+
+    ``extract_fn``: a ``make_extract_fn`` function to run instead of a fresh
+    one (the trainer's mining and ``cli.extract_1m`` build theirs once).
+    ``loader="native"`` decodes each chunk of ``4 * batch_size`` paths
+    through the threaded libjpeg loader (``data.load_test_images_native``);
+    bbx crops always go through PIL (the crop needs the full-resolution
+    image)."""
     from ..data.images import bucket_batches, iter_test_images
 
+    if loader not in ("pil", "native"):
+        raise ValueError(f"unknown loader: {loader!r}")
+    if loader == "native" and bbxs is None:
+        from ..data.images import load_test_images_native
+
+        def native_source():
+            chunk = 4 * batch_size
+            for start in range(0, len(paths), chunk):
+                arrays = load_test_images_native(paths[start:start + chunk], image_size)
+                for j, arr in enumerate(arrays):
+                    yield start + j, arr
+
+        source = native_source()
+    else:
+        source = iter_test_images(paths, imsize=image_size, bbxs=bbxs)
+
     device = model.device
-    fn = make_extract_fn(model.module, scales=scales)
+    fn = extract_fn or make_extract_fn(model.module, scales=scales)
     out = np.zeros((len(paths), model.outputdim), np.float32)
-    source = iter_test_images(paths, imsize=image_size, bbxs=bbxs)
     for batch in bucket_batches(source, batch_size):
         vecs = fn(torch.from_numpy(batch.images).to(device),
                   torch.from_numpy(batch.mask).to(device))
@@ -102,9 +125,10 @@ def extract_vectors_single(
     image_size: int = 1024,
     bbx=None,
     scales: Sequence[float] = (1.0,),
+    extract_fn=None,
 ) -> np.ndarray:
     """One-query extraction; ``(D,)`` output."""
     return extract_vectors(
         model, [image_path], image_size, [bbx] if bbx is not None else None,
-        scales, batch_size=1,
+        scales, batch_size=1, extract_fn=extract_fn,
     )[0]

@@ -10,16 +10,24 @@ The public layout is the JAX package's: ``forward`` takes NHWC images and a
 NCHW (a permuted NHWC tensor, i.e. channels-last memory). The mask is
 subsampled per stage and re-applied after every block, after the max-pool and
 after each SOA block; SOA masks invalid keys with -1e30 before the softmax.
-``remat`` and ``frozen_stages`` of the JAX module are training-only and are
-not ported yet.
+
+Two training knobs, as in JAX (:155-242): ``frozen_stages=k`` runs the stem
+and stages 1..k under ``torch.no_grad()``, so autograd records nothing there
+(``k=3``, the stem and ``conv2_x``-``conv4_x``, is the reference's own
+``no_grad`` boundary, ``networks.py:194-198``, and JAX's ``stop_gradient``
+after layer 3); ``remat`` runs each ``Bottleneck`` that records a backward
+under ``torch.utils.checkpoint`` (``use_reentrant=False``), so its
+activations are recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # stage depths per architecture (torchvision table)
 STAGE_BLOCKS = {
@@ -54,8 +62,11 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = self.weight / torch.sqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * inv
+        # the affine in the parameters' f32 (in f64 for an f64 input), then
+        # cast to the input's dtype
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        inv = self.weight.to(dt) / torch.sqrt(self.running_var.to(dt) + self.eps)
+        shift = self.bias.to(dt) - self.running_mean.to(dt) * inv
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
@@ -106,8 +117,9 @@ class SOABlock(nn.Module):
         f_x = self.f(x).flatten(2).transpose(1, 2)            # (B, N, mid)
         g_x = self.g(x).flatten(2)                            # (B, mid, N)
         h_x = self.h(x).flatten(2).transpose(1, 2)            # (B, N, mid)
-        # logits and softmax in f32 whatever the compute dtype
-        logits = self.mid_ch ** (-0.5) * torch.bmm(f_x.float(), g_x.float())
+        # logits and softmax in f32 at least (in f64 when the compute is f64)
+        acc = torch.promote_types(f_x.dtype, torch.float32)
+        logits = self.mid_ch ** (-0.5) * torch.bmm(f_x.to(acc), g_x.to(acc))
         if mask is not None:
             logits = logits.masked_fill(~mask.reshape(B, 1, N), -1e30)
         attn = logits.softmax(dim=-1)
@@ -125,11 +137,14 @@ class ResNetSOA(nn.Module):
     the final ``(B, H/32, W/32, 2048)`` NHWC feature map and its mask."""
 
     def __init__(self, architecture: str = "resnet101", soa_layers: str = "45",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, frozen_stages: int = 0,
+                 remat: bool = False):
         super().__init__()
         blocks = STAGE_BLOCKS[architecture]
         self.soa_layers = soa_layers
         self.compute_dtype = compute_dtype
+        self.frozen_stages = frozen_stages
+        self.remat = remat
         self.conv1 = nn.Sequential(
             Conv2d(3, 64, 7, stride=2, padding=3, bias=False), FrozenBatchNorm2d(64)
         )
@@ -151,6 +166,17 @@ class ResNetSOA(nn.Module):
         if "5" in soa_layers:
             self.soa5 = SOABlock(2048, 2048 // 2)
 
+    def _grad_mode(self, stage: int):
+        """``no_grad`` for the stem (stage 0) and stages 1..``frozen_stages``
+        when any stage is frozen."""
+        frozen = self.frozen_stages and stage <= self.frozen_stages
+        return torch.no_grad() if frozen else contextlib.nullcontext()
+
+    def _block(self, block: nn.Module, y: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, y, use_reentrant=False)
+        return block(y)
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
@@ -160,13 +186,15 @@ class ResNetSOA(nn.Module):
             x = _apply_mask(x, mask)
             masks = [mask[:, ::f, ::f] for f in _MASK_STRIDES]
 
-        y = self.conv1(x)
-        y = self.conv2_x[1](self.conv2_x[0](y))                # ReLU, max-pool
-        y = _apply_mask(y, masks[0])
+        with self._grad_mode(0):
+            y = self.conv1(x)
+            y = self.conv2_x[1](self.conv2_x[0](y))            # ReLU, max-pool
+            y = _apply_mask(y, masks[0])
         stages = (self.conv2_x[2], self.conv3_x, self.conv4_x, self.conv5_x)
         for i, stage in enumerate(stages, 1):
-            for block in stage:
-                y = _apply_mask(block(y), masks[i])
+            with self._grad_mode(i):
+                for block in stage:
+                    y = _apply_mask(self._block(block, y), masks[i])
             if i == 3 and "4" in self.soa_layers:
                 y = _apply_mask(self.soa4(y, masks[3]), masks[3])
         if "5" in self.soa_layers:

@@ -14,9 +14,17 @@ again, and the regions are summed and normalized. GeM's ``p`` is shared by
 all regions (``pool.rpool.p``). The region grid assumes full-extent maps, so
 a masked (padded) batch raises, as in JAX; R-MAC pooling ignores the mask,
 as in JAX.
+
+The backbone's training knobs (``frozen_stages``, ``remat``,
+``compute_dtype``) are set per module; ``clone`` gives a module that shares
+this one's parameters with other knobs, as Flax's ``module.clone`` does (the
+trainer trains through a frozen, bf16 or remat clone and validates and mines
+through the module itself).
 """
 
 from __future__ import annotations
+
+import copy
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
@@ -37,6 +45,15 @@ OUTPUT_DIM = {
 FEATURE_DIM = 2048  # channels of conv5_x for every supported architecture
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype (parameters stay f32),
+    like the backbone's ``Conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return nn.functional.linear(x, self.weight.to(x.dtype), bias)
+
+
 class GeM(nn.Module):
     """Holds the learnable GeM exponent as ``pool.p``: shape ``(1,)`` (GeM)
     or ``(C,)`` (per-channel GeMmp), as in the SOLAR checkpoint."""
@@ -55,7 +72,7 @@ class Rpool(nn.Module):
         super().__init__()
         if pooling in ("gem", "gemmp"):
             self.rpool = GeM(p, dim if pooling == "gemmp" else 1)
-        self.whiten = nn.Linear(dim, dim)
+        self.whiten = Linear(dim, dim)
 
 
 class SolarRetrieval(nn.Module):
@@ -71,6 +88,8 @@ class SolarRetrieval(nn.Module):
         regional: bool = False,
         p_init: float = 3.0,
         compute_dtype: Optional[torch.dtype] = None,
+        frozen_stages: int = 0,
+        remat: bool = False,
     ):
         super().__init__()
         base = ("gem", "gemmp", "mac", "spoc")
@@ -79,15 +98,30 @@ class SolarRetrieval(nn.Module):
             raise ValueError(f"unsupported {kind}: {pooling}")
         self.pooling = pooling
         self.regional = regional
-        self.features = ResNetSOA(architecture, soa_layers, compute_dtype)
+        self.features = ResNetSOA(architecture, soa_layers, compute_dtype,
+                                  frozen_stages=frozen_stages, remat=remat)
         if local_whitening:
-            self.lwhiten = nn.Linear(FEATURE_DIM, FEATURE_DIM)
+            self.lwhiten = Linear(FEATURE_DIM, FEATURE_DIM)
         if regional:
             self.pool = Rpool(pooling, p_init)
         elif pooling in ("gem", "gemmp"):
             self.pool = GeM(p_init, FEATURE_DIM if pooling == "gemmp" else 1)
         if whitening:
-            self.whiten = nn.Linear(FEATURE_DIM, FEATURE_DIM)
+            self.whiten = Linear(FEATURE_DIM, FEATURE_DIM)
+
+    def clone(self, **overrides) -> "SolarRetrieval":
+        """A module that shares this one's parameters and buffers, with the
+        backbone's ``frozen_stages``, ``remat`` or ``compute_dtype`` set
+        from ``overrides``."""
+        unknown = set(overrides) - {"frozen_stages", "remat", "compute_dtype"}
+        if unknown:
+            raise TypeError(f"clone() takes no {sorted(unknown)}")
+        new = copy.copy(self)
+        new._modules = dict(self._modules)
+        new.features = copy.copy(self.features)
+        for k, v in overrides.items():
+            setattr(new.features, k, v)
+        return new
 
     def _base_pool(self, feats, mask=None):
         if self.pooling in ("gem", "gemmp"):
@@ -101,7 +135,9 @@ class SolarRetrieval(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         feats, fmask = self.features(x, mask)
-        feats = feats.float()  # the head always runs f32
+        # the head runs f32 whatever the backbone's dtype (f64 with an f64
+        # backbone, a mode for checking one device against another)
+        feats = feats.to(torch.promote_types(feats.dtype, torch.float32))
         if hasattr(self, "lwhiten"):
             feats = self.lwhiten(feats)
         if self.regional:

@@ -7,6 +7,9 @@ and rebuilt when a source is newer than it. A failed build raises; nothing is
 installed or downloaded.
 
 - ``hnsw``: the HNSW graph construction, ``native/hnsw_build.cpp``, with ``g++``.
+- ``image_loader``: the threaded JPEG decoder, ``native/image_loader.cpp``,
+  with ``g++``, linked against the system's libjpeg (``jpeglib.h`` and
+  ``libjpeg.so``; a machine without them fails the build).
 - ``beam_search``: the HNSW level-0 beam-search kernel,
   ``csrc/beam_search.cu``, with ``nvcc`` for ``sm_90a`` (Hopper), as a shared
   library with a plain C interface.
@@ -27,11 +30,15 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# library -> (compiler, sources relative to the package, extra flags)
+# library -> (compiler, sources relative to the package, compile flags,
+# link flags). Link flags go after the sources: a linker that drops libraries
+# named before the objects that need them (``--as-needed``) would otherwise
+# leave the library's symbols undefined.
 _LIBRARIES = {
-    "hnsw": ("g++", ["native/hnsw_build.cpp"], []),
-    "beam_search": ("nvcc", ["csrc/beam_search.cu"], []),
-    "beam_search_clocks": ("nvcc", ["csrc/beam_search.cu"], ["-DBEAM_SEARCH_PHASE_CLOCKS"]),
+    "hnsw": ("g++", ["native/hnsw_build.cpp"], [], []),
+    "image_loader": ("g++", ["native/image_loader.cpp"], [], ["-ljpeg"]),
+    "beam_search": ("nvcc", ["csrc/beam_search.cu"], [], []),
+    "beam_search_clocks": ("nvcc", ["csrc/beam_search.cu"], ["-DBEAM_SEARCH_PHASE_CLOCKS"], []),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,22 +56,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _commands(compiler: str, srcs: List[str], out: str,
-              flags: List[str]) -> List[List[str]]:
-    """Candidate build commands, tried in order (the first that works wins)."""
+def _commands(compiler: str, srcs: List[str], out: str, flags: List[str],
+              link_flags: List[str] = ()) -> List[List[str]]:
+    """Candidate build commands, tried in order (the first that works wins);
+    ``link_flags`` come last, after the sources."""
     if compiler == "g++":
-        base = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *flags, "-o", out, *srcs]
-        return [base + ["-march=native"], base]
+        base = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *flags]
+        tail = ["-o", out, *srcs, *link_flags]
+        return [base + ["-march=native"] + tail, base + tail]
     return [[
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
-        "-o", out, *srcs,
+        "-o", out, *srcs, *link_flags,
     ]]
 
 
 def build(name: str) -> str:
     """Compile library ``name`` if it is missing or stale; return its path."""
-    compiler, rel, flags = _LIBRARIES[name]
+    compiler, rel, flags, link_flags = _LIBRARIES[name]
     srcs = [os.path.join(_PKG, s) for s in rel]
     so_path = os.path.join(BUILD_DIR, f"lib{name}.so")
     newest_src = max(os.path.getmtime(s) for s in srcs)
@@ -75,7 +84,7 @@ def build(name: str) -> str:
     # workers) never load a half-written library
     tmp = f"{so_path}.{os.getpid()}.tmp"
     errors = []
-    for cmd in _commands(compiler, srcs, tmp, flags):
+    for cmd in _commands(compiler, srcs, tmp, flags, link_flags):
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode == 0:
             with open(f"{tmp}.log", "w") as f:

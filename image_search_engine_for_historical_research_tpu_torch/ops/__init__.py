@@ -1,7 +1,8 @@
 """Numeric ops: normalization, pooling, exact scores, HNSW search; k-means
 and product quantization in ``ops.kmeans`` and ``ops.pq``, the int8 scan in
 ``ops.int8``, LSH and Hamming search in ``ops.hashing``, whitening in
-``ops.whiten`` and the flat codeword layout in ``ops.softpq``.
+``ops.whiten``, the tuple losses in ``ops.losses`` and soft PQ with the flat
+codeword layout in ``ops.softpq``.
 
 The beam-search kernel is reached as the module ``ops.beam_search``
 (``beam_search.beam_search`` and its launch count ``beam_search.launches``).

@@ -1,13 +1,15 @@
 """Online query service: extraction + search + re-rank behind a WSGI app.
 
-Port of ``image_search_engine_for_historical_research_tpu/serving/app.py``
-(all of it but the native JPEG loader): load the network and the gallery at
+Port of ``image_search_engine_for_historical_research_tpu/serving/app.py``:
+load the network and the gallery at
 startup, take an uploaded image on ``POST /``, extract its descriptor, search
 the index, re-rank (one qge1 iteration, or diffusion against a prebuilt
 ``rerank.DiffusionOffline`` artifact) and return the top-K gallery paths
 (JSON for API clients, HTML for browsers). The batched path uploads a raw
 uint8 canvas and normalizes it and builds the mask on the device; request
-coalescing in front of it is ``serving.batching.CoalescingService``.
+coalescing in front of it is ``serving.batching.CoalescingService``. The
+batched path decodes with PIL on a thread pool or, with ``loader="native"``,
+with the threaded libjpeg loader.
 """
 
 from __future__ import annotations
@@ -24,7 +26,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.images import IMAGENET_MEAN, IMAGENET_STD, load_test_image
+from ..data.images import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    load_test_image,
+    load_test_images_native,
+)
 from ..device import resolve_device
 from ..models.extract import extract_vectors_single, make_extract_fn
 from ..ops.topk import _top_exact
@@ -83,6 +90,7 @@ class SearchService:
         rerank: "bool | str" = True,
         image_root: Optional[str] = None,
         diffusion_offline=None,
+        loader: str = "pil",
         device="cuda",
     ):
         """``rerank``: ``"qge1"``/``True`` = one qge1 iteration;
@@ -90,7 +98,9 @@ class SearchService:
         index shortlist against ``diffusion_offline`` (a
         ``rerank.DiffusionOffline`` on this device, or on the host, where
         only the seed rows are gathered); ``False``/``None`` = index order
-        as-is."""
+        as-is. ``loader``: how ``prepare_batch`` decodes, ``"pil"`` (a
+        thread pool) or ``"native"`` (the threaded libjpeg loader);
+        ``query_image`` always decodes with PIL, as in JAX."""
         self.device = resolve_device(device)
         self.model = model
         self.index = index
@@ -103,6 +113,9 @@ class SearchService:
         self.rerank = "qge1" if rerank is True else (rerank or None)
         if self.rerank not in (None, "qge1", "diffusion"):
             raise ValueError(f"unknown rerank mode: {rerank!r}")
+        if loader not in ("pil", "native"):
+            raise ValueError(f"unknown loader: {loader!r}")
+        self.loader = loader
         self.diffusion_offline = diffusion_offline
         if self.rerank == "diffusion":
             if diffusion_offline is None:
@@ -191,9 +204,10 @@ class SearchService:
         return self.execute_batch(self.prepare_batch(image_paths))
 
     def prepare_batch(self, image_paths: Sequence[str]):
-        """Host half: decode and pack raw uint8 images onto one square canvas
-        (side = image_size rounded up to 32); pad slots replicate query 0
-        (never zeros: an all-false mask breaks masked pooling)."""
+        """Host half: decode (PIL on the thread pool, or the native
+        loader's own threads) and pack raw uint8 images onto one square
+        canvas (side = image_size rounded up to 32); pad slots replicate
+        query 0 (never zeros: an all-false mask breaks masked pooling)."""
         B = len(image_paths)
         if B == 0:
             return None
@@ -202,9 +216,13 @@ class SearchService:
         side = ((self.image_size + 31) // 32) * 32
         images = np.zeros((slot, side, side, 3), np.uint8)
         hw = np.zeros((slot, 2), np.int64)
-        arrays = list(self._load_pool.map(
-            lambda p: load_test_image(p, self.image_size, raw=True), image_paths
-        ))
+        if self.loader == "native":
+            arrays = load_test_images_native(image_paths, self.image_size, threads=8,
+                                             raw=True)
+        else:
+            arrays = list(self._load_pool.map(
+                lambda p: load_test_image(p, self.image_size, raw=True), image_paths
+            ))
         for b, arr in enumerate(arrays):
             h, w = arr.shape[:2]
             images[b, :h, :w] = arr

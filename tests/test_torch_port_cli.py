@@ -368,17 +368,17 @@ def test_new_methods_through_offline_match_jax(tmp_path, monkeypatch, method):
 
 @pytest.mark.parametrize("cli", ["offline", "online"])
 @pytest.mark.parametrize("loader", ["pil", "native"])
-def test_loader_flag(collection, tmp_path, cli, loader):
-    """``--loader pil`` is taken as the JAX CLIs take it; ``--loader native``
-    exits at start-up, naming the ROADMAP item that ports the native loader."""
+def test_loader_flag(collection, tmp_path, cli, loader, monkeypatch):
+    """``--loader pil`` and ``--loader native`` are taken as the JAX CLIs take
+    them. The JPEGs are below the thumbnail side, so the native decoder's
+    pixels are PIL's and both stores equal the JAX store; the native online
+    service decodes its batches through the native loader."""
+    from image_search_engine_for_historical_research_tpu_torch.serving import app as t_app
+
     root, data, paths, common = collection
     if cli == "offline":
         argv = ["--datasets", "coll", "--matching-method", "L2", "--outputs", str(tmp_path),
                 "--device", "cpu", "--loader", loader] + common
-        if loader == "native":
-            with pytest.raises(SystemExit, match="native JPEG loader"):
-                t_offline.main(argv)
-            return
         with one_block_arch():
             assert t_offline.main(argv) == 0
         ref, _ = j_load_features("coll", root=str(root / "jax_out"))
@@ -388,16 +388,19 @@ def test_loader_flag(collection, tmp_path, cli, loader):
     argv = ["--datasets", "coll", "--outputs", str(root / "jax_out"), "--matching-method", "L2",
             "--K", str(K), "--device", "cpu", "--loader", loader] + common
     args = t_online.build_parser().parse_args(argv)
-    if loader == "native":
-        with pytest.raises(SystemExit, match="native JPEG loader"):
-            t_online.make_service(args)
-        return
+    calls = []
+    decode = t_app.load_test_images_native
+    monkeypatch.setattr(t_app, "load_test_images_native",
+                        lambda *a, **k: calls.append(1) or decode(*a, **k))
     with one_block_arch():
         svc = t_online.make_service(args)
-    try:
-        assert [r["id"] for r in svc.query_image(paths[2])[0]][0] == 2
-    finally:
-        svc.close()
+        try:
+            assert svc.loader == loader
+            assert [r["id"] for r in svc.query_image(paths[2])[0]][0] == 2
+            assert [r["id"] for r in svc.query_batch(paths[3:5])[1][0]][0] == 4
+        finally:
+            svc.close()
+    assert len(calls) == (loader == "native")
 
 
 def _pq_stores(root, collection_root):
