@@ -80,10 +80,13 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    from 8 threads through ``CoalescingService(max_batch=8)``: each request's
    ids equal ``query_image``'s, fewer batches than requests, one launch a
    batch. Before that, the PQ family served: ``cli.offline --ifextracted
-   --ifgenerate`` with ``HNSW_NanoPQ --opq refine --refine-m 8``, ``IVFPQ --refine-m 8``
-   and ``PQ`` over both stores, each served by ``cli.online.make_service``:
-   4 WSGI POSTs and a ``query_batch`` of the same 4 (equal ids), one query on
-   a CPU service from the same artifact (equal ids), the PQ ops' calls
+   --ifgenerate`` with ``HNSW_NanoPQ --opq refine --refine-m 32`` (its
+   refine OPQ fit's seconds printed), ``IVFPQ --refine-m 32`` and ``PQ``
+   over both stores, each served by ``cli.online.make_service``: 4 WSGI
+   POSTs and a ``query_batch`` of the same 4 (equal ids), one query on a
+   CPU service from the same artifact (its search equal to the card's but
+   at ties, 1e-5 relative; its served ids equal where the searches are),
+   the PQ ops' calls
    counted on the served path. Then the remaining matchers (``L2_int8``,
    ``fractional``, ``LSH``, ``ANNOY``, ``Greedyhash``) through ``cli.offline
    --loader pil`` over both stores, and ``cli.online --matching-method
@@ -133,18 +136,37 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    for 2 epochs with a held-out eval set, and stopped after epoch 0 and
    resumed, under deterministic cuDNN (epoch-1 step losses equal at rtol
    1e-4); one POST served from the trained checkpoint.
+9. SAHA geometric verification (``saha_phase``): the extraction phase's 256
+   photographs laid out as a revisited dataset (32 queries, one view a
+   scene; 224 views as the database, revisitop1m's gallery cut to them) with
+   its one-shot ResNet101-SOLAR rows as the feature stores;
+   ``cli.test_reranking --methods sift --sift-backend device
+   --matching-method HNSW`` at the JAX defaults (1000 x 1000, 1,024
+   keypoints, 4 octaves, AdaLAM's default config, b=30, pair_batch=8),
+   K1's launches counted, SIFT img/s and peak memory, AdaLAM pairs/s, the
+   re-rank's seconds, mAP E/M/H before and after (printed; held to the JAX
+   package's, not to the baseline, see ``saha_phase``); the shortlist's
+   verified-match counts against the JAX package's on the same photographs
+   and pairs (``scripts/saha_jax_reference.json``: at most 2% of the pairs
+   differ, each by at most 1 or 10%; the mAPs within 0.005); the device SIFT of 8 images on the card against
+   the CPU (>= 99% of the keypoints within 1e-2 px, descriptors within
+   1e-3) and AdaLAM counts of 4 queries x 30 candidates from the same
+   features on both (at most 2% of the pairs differ, by at most 1) and per
+   pair (equal). Before the PQ phases, the refine OPQ
+   fit of ``scripts/measure_torch_opq_fit.py`` split into its parts.
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
 before it (``ms``), and the same with a spin kernel queued ahead of the first
 event, so the host's launch gaps are hidden (``device_ms``).
 
 Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
-run: the HNSW and diffusion services and the coalesced batches), a
+run: the HNSW and diffusion services, the coalesced batches and the SAHA
+run's HNSW matcher), a
 ``{"rerank": {...}}`` line with the re-ranking phases' numbers, a
 ``{"pq": {...}}`` line with the PQ phases' numbers, a ``{"matchers":
 {...}}`` line with the remaining matchers' numbers, a ``{"slice7": {...}}``
-line with the extraction and training numbers, then the
-``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+line with the extraction and training numbers, a ``{"saha": {...}}`` line
+with the SAHA phase's, then the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
 CUDA device.
@@ -1061,6 +1083,8 @@ def pq_1m_phase(vecs, dev, flush, card):
 
     # (b) PQ + HNSW, the JAX package's recommended route (opq on the residual level)
     b, b_cpu = build("hnsw_pq", build_hnsw_pq, M=16, Ks=8192, m=16, opq="refine", refine_M=32)
+    print(f"refine OPQ fit of the 1M build_hnsw_pq (M=32, Ks=256): "
+          f"{out['builds']['hnsw_pq']['refine_fit_s']} s ({card})", flush=True)
     check(out["builds"]["hnsw_pq"]["builder"] == "device", "build_hnsw_pq did not pick the "
                                                            "device builder at 1M")
     print(f"HNSW-PQ unique codes U = {b.unique_codes.shape[0]}", flush=True)
@@ -1212,25 +1236,64 @@ def pq_determinism_phase(vecs, dev, card, rows=65_536):
     return out
 
 
+def served_scored(svc, search_ids):
+    """The service's qge1 re-rank (``SearchService._rerank``) of a search's
+    ids ``(1, K)``, with the scores it ranks by: ``(scores, ids)`` on the
+    CPU."""
+    from image_search_engine_for_historical_research_tpu_torch.ops.topk import _top, exact_scores
+    from image_search_engine_for_historical_research_tpu_torch.rerank import qe
+
+    check(svc.rerank == "qge1", f"served re-rank {svc.rerank}, want qge1")
+    ranks = torch.as_tensor(search_ids, device=svc.device)
+    q = qe._enhance(ranks, svc._vecs_dev, min(3, ranks.shape[1]), 4.0)
+    s, i = _top(exact_scores(q, svc._vecs_dev), min(svc.K, svc.vecs.shape[0]))
+    return s.cpu(), i.cpu()
+
+
 def pq_serving_phase(offline, online, common, argv, paths, dev, card):
     """``cli.offline`` builds each PQ-family artifact over the served gallery
     and ``cli.online.make_service`` serves it: 4 WSGI POSTs, one query_batch
-    of the same 4 (equal ids), one query on a CPU service (equal ids), with
-    the PQ ops counted on the card's served path."""
+    of the same 4 (equal ids), one query on a CPU service (its search equal
+    to the card's but at ties; each service's served ids the re-rank of its
+    search; the card's re-rank of the CPU's search equal to the CPU's served
+    list but at tied scores), with the PQ ops counted on the card's served
+    path."""
     from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
 
+    from image_search_engine_for_historical_research_tpu_torch.index import pq as index_pq
+    from image_search_engine_for_historical_research_tpu_torch.models.extract import (
+        extract_vectors_single,
+    )
+
     out = {}
-    # refine codes of 8 bytes for both refine routes, a width cut: at
-    # HNSW_NanoPQ's default 32 its refine OPQ fit, sequential over the 32
-    # subspaces, spends the script's time limit on 4,112 rows (ROADMAP
-    # section 3); back to 32 when that fit is batched
-    for method, extra in (("HNSW_NanoPQ", ["--opq", "refine", "--refine-m", "8"]),
-                          ("IVFPQ", ["--refine-m", "8"]), ("PQ", [])):
+    fit_s = []
+    opq_train = index_pq.opq_train
+
+    def timed_opq_train(*a, **kw):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        check(offline.main(["--datasets", "images,synthetic", "--ifextracted", "--ifgenerate",
-                            "--matching-method", method] + extra + common) == 0,
-              f"cli.offline {method} failed")
+        cb = opq_train(*a, **kw)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+        return cb
+
+    # the CLI's default 32-byte refine codes on both refine routes
+    for method, extra in (("HNSW_NanoPQ", ["--opq", "refine", "--refine-m", "32"]),
+                          ("IVFPQ", ["--refine-m", "32"]), ("PQ", [])):
+        t0 = time.perf_counter()
+        index_pq.opq_train = timed_opq_train
+        try:
+            check(offline.main(["--datasets", "images,synthetic", "--ifextracted", "--ifgenerate",
+                                "--matching-method", method] + extra + common) == 0,
+                  f"cli.offline {method} failed")
+        finally:
+            index_pq.opq_train = opq_train
         build_s = time.perf_counter() - t0
+        if method == "HNSW_NanoPQ":
+            check(len(fit_s) == 1, f"HNSW_NanoPQ --opq refine ran {len(fit_s)} OPQ fits, want 1")
+            out["refine_opq_fit_s"] = fit_s[0]
+            print(f"refine OPQ fit of the served HNSW_NanoPQ (M=32, Ks=256, 4,112 rows): "
+                  f"{fit_s[0]} s ({card})", flush=True)
         margv = [("PQ_METHOD" if a == "HNSW" else a) for a in argv]
         margv[margv.index("PQ_METHOD")] = method
         svc = online.make_service(online.build_parser().parse_args(margv + ["--device", dev.type]))
@@ -1247,8 +1310,27 @@ def pq_serving_phase(offline, online, common, argv, paths, dev, card):
               f"{method}: query_batch ids differ from the POSTs'")
         cpu = online.make_service(online.build_parser().parse_args(margv + ["--device", "cpu"]))
         cpu_ids = [r["id"] for r in cpu.query_image(paths[0])[0]]
+        # each service's search of the query under its own descriptor: at
+        # 32-byte refine codes the 16 near-parallel image descriptors
+        # reconstruct to scores a float ulp apart, so the two searches may
+        # order them as ties; each service serves the qge1 re-rank of its
+        # own search, and the card's re-rank of the CPU's search must give
+        # the CPU's served list, ids free only at tied served scores
+        sg, ig = svc.index.search(torch.as_tensor(extract_vectors_single(
+            svc.model, paths[0], svc.image_size, scales=svc.scales))[None], svc.K)
+        sc, ic = cpu.index.search(torch.as_tensor(extract_vectors_single(
+            cpu.model, paths[0], cpu.image_size, scales=cpu.scales))[None], cpu.K)
+        moved, gap = compare_scored(sc, ic, sg, ig, 1e-5, f"{method}: served search, CPU vs card")
+        s_card, i_card = served_scored(svc, ig)
+        s_cpu, i_cpu = served_scored(cpu, ic)
+        check(i_card[0].tolist() == ids[0], f"{method}: card service ids {ids[0]} are not the "
+                                            f"re-rank of its search {i_card[0].tolist()}")
+        check(i_cpu[0].tolist() == cpu_ids, f"{method}: CPU service ids {cpu_ids} are not the "
+                                            f"re-rank of its search {i_cpu[0].tolist()}")
+        s_x, i_x = served_scored(svc, ic)
+        served_moved, served_gap = compare_scored(
+            s_x, i_x, s_cpu, i_cpu, 1e-5, f"{method}: served results, CPU vs card on one search")
         cpu.close()
-        check(cpu_ids == ids[0], f"{method}: CPU service ids {cpu_ids}, card {ids[0]}")
         t = posted[0]["timing"]
         g = torch.Generator(device=dev).manual_seed(5)
         qv = unit_rows(torch.randn(1, D, generator=g, device=dev))
@@ -1256,6 +1338,9 @@ def pq_serving_phase(offline, online, common, argv, paths, dev, card):
                "search_s": [o["timing"]["search_s"] for o in posted],
                "rerank_s": t["rerank_s"], "extract_s": t["extract_s"],
                "batch_search_s": batch[0][1]["search_s"], "op_calls": dict(calls.counts),
+               "cpu_search_ranks_at_ties": moved, "cpu_search_tie_gap": gap,
+               "cpu_served_ranks_at_ties": served_moved, "cpu_served_tie_gap": served_gap,
+               "cpu_served_ids_equal": cpu_ids == ids[0],
                "rank0_own_image": sum(row[0] == i for i, row in enumerate(ids))}
         out[method] = rec
         print(f"PQ serving {method} {' '.join(extra)}: {json.dumps(rec)} ({card})", flush=True)
@@ -1864,6 +1949,393 @@ def extract_1m_phase(data_root, ckpt, tmp, card):
     return out
 
 
+SAHA_DATASET = "roxford5k"   # the revisited gnd layout configdataset reads
+
+
+def saha_layout(x1m_root, oneshot, root, outputs, n_scenes=32, views=7):
+    """Lay the ``make_revisitop`` photographs out as a revisited dataset:
+    one query a scene (``q_s<c>``), its ``views`` other views as the
+    database (``db_s<c>_<i>``, scene-major; the first half easy, the rest
+    hard, as ``make_scene_revisited`` splits them), under
+    ``<root>/<SAHA_DATASET>`` (gnd pickle, ``jpg`` linked to the images);
+    the extraction phase's one-shot rows of those images become the two
+    feature stores under ``outputs``. Returns the image directory."""
+    import pickle
+
+    from image_search_engine_for_historical_research_tpu_torch.data import (
+        load_path_features,
+        save_path_feature,
+    )
+
+    rows, rel = load_path_features("revisitop1m", root=oneshot)
+    by_name = {os.path.splitext(os.path.basename(r))[0]: i for i, r in enumerate(rel)}
+    imlist = [f"db_s{c}_{i}" for c in range(n_scenes) for i in range(views)]
+    qimlist = [f"q_s{c}" for c in range(n_scenes)]
+    half = max(1, views // 2)
+    gnd = [{"easy": np.arange(c * views, c * views + half),
+            "hard": np.arange(c * views + half, (c + 1) * views),
+            "junk": np.array([], np.int64), "bbx": [0, 0, 1024, 768]} for c in range(n_scenes)]
+    d = os.path.join(root, SAHA_DATASET)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, f"gnd_{SAHA_DATASET}.pkl"), "wb") as f:
+        pickle.dump({"imlist": imlist, "qimlist": qimlist, "gnd": gnd}, f)
+    jpg = os.path.join(x1m_root, "revisitop1m", "jpg")
+    os.symlink(jpg, os.path.join(d, "jpg"))
+    for name, names in ((SAHA_DATASET, imlist), (SAHA_DATASET + "_queries", qimlist)):
+        save_path_feature(name, rows[[by_name[n] for n in names]],
+                          [f"jpg/{n}.jpg" for n in names], root=outputs)
+    return jpg
+
+
+def sift_images(paths, size=(1000, 1000)):
+    """Grayscale [0, 1] images at ``size`` as ``sift_extract_device`` reads them."""
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(p).convert("L").resize(size), np.float32) / 255.0
+                     for p in paths])
+
+
+SAHA_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                              "saha_jax_reference.json")
+
+
+def images_digest(jpg, names):
+    """sha256 over the bytes of ``<jpg>/<name>.jpg`` in ``names``' order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in names:
+        with open(os.path.join(jpg, n + ".jpg"), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def saha_cpu_side(jpg, names, store, pairs, out):
+    """Part of the CPU half of the SAHA phase's card-vs-CPU checks, run in a
+    child process beside the card's work: the port's device SIFT on the CPU
+    over ``names`` (1,024 keypoints, 4 octaves, one batch) or the AdaLAM
+    counts of ``pairs`` ((query, candidate) names, features from
+    ``store``), written to ``out`` (npz) with their seconds."""
+    from image_search_engine_for_historical_research_tpu_torch.ops import sift
+    from image_search_engine_for_historical_research_tpu_torch.rerank import geometric
+
+    t0 = time.perf_counter()
+    if names:
+        res = sift.sift_program(torch.as_tensor(sift_images([os.path.join(jpg, n + ".jpg")
+                                                             for n in names])),
+                                4, sift.default_budgets(1024, 4))
+        np.savez(out, s=time.perf_counter() - t0, **{k: v.numpy() for k, v in res.items()})
+        return
+    feats = {n: geometric.LocalFeatures.load(os.path.join(store, n + ".npz"))
+             for n in {n for pair in pairs for n in pair}}
+    counts = geometric.adalam_count_pairs([feats[q] for q, _ in pairs],
+                                          [feats[c] for _, c in pairs], pair_batch=8,
+                                          device="cpu")
+    np.savez(out, s=time.perf_counter() - t0, counts=counts)
+
+
+def start_cpu_side(jpg, names, store, pairs, tmp, pair_batch=8):
+    """``saha_cpu_side`` in child processes that see no GPU, one thread each
+    (the CPU's AdaLAM and SIFT scale poorly with threads): one for the SIFT
+    of ``names``, and one for each slice of whole ``pair_batch`` blocks of
+    ``pairs``, as many as leave this process two cores. Returns the
+    processes and their output files, the SIFT's first."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.saha_cpu_side(*json.loads(sys.argv[2]))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    blocks = [pairs[i:i + pair_batch] for i in range(0, len(pairs), pair_batch)]
+    k = max(1, min(len(blocks), (os.cpu_count() or 4) - 3))
+    jobs = [(names, [])] + [([], [p for blk in blocks[i::k] for p in blk]) for i in range(k)]
+    procs, outs = [], []
+    for i, (n, pr) in enumerate(jobs):
+        outs.append(os.path.join(tmp, f"saha_cpu_side_{i}.npz"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)),
+             json.dumps([jpg, n, store, pr, outs[-1]])],
+            env=env))
+    return procs, outs, jobs
+
+
+def sift_agreement(card, cpu, tol_px=1e-2, tol_desc=1e-3):
+    """Device SIFT fields of the same images from the card and the CPU: each
+    valid card keypoint is matched to the CPU keypoint within ``tol_px``
+    whose angle is nearest, and counts if their descriptors agree within
+    ``tol_desc``. Returns the share of matched keypoints (of the larger
+    valid count) and the worst gaps."""
+    matched = total = 0
+    worst_px = worst_desc = 0.0
+    for b in range(len(card["valid"])):
+        vc, vp = card["valid"][b], cpu["valid"][b]
+        total += max(int(vc.sum()), int(vp.sum()))
+        xy_p, ang_p, desc_p = cpu["xy"][b][vp], cpu["angle"][b][vp], cpu["desc"][b][vp]
+        for i in np.nonzero(vc)[0]:
+            gap = np.linalg.norm(xy_p - card["xy"][b][i], axis=1)
+            near = np.nonzero(gap <= tol_px)[0]
+            if not len(near):
+                continue
+            da = np.abs((ang_p[near] - card["angle"][b][i] + np.pi) % (2 * np.pi) - np.pi)
+            j = near[int(np.argmin(da))]
+            dgap = float(np.abs(desc_p[j] - card["desc"][b][i]).max())
+            worst_px = max(worst_px, float(gap[j]))
+            worst_desc = max(worst_desc, dgap)
+            matched += dgap <= tol_desc
+    return {"images": len(card["valid"]), "valid_card": int(card["valid"].sum()),
+            "valid_cpu": int(cpu["valid"].sum()), "matched_share": matched / max(total, 1),
+            "worst_px": worst_px, "worst_desc": worst_desc}
+
+
+def saha_against_jax(cfg, jpg, ranks, counts, b):
+    """The card's SAHA re-rank held against the JAX package's on the same
+    photographs and shortlist, ``SAHA_REFERENCE`` (written by
+    ``scripts/saha_jax_witness.py``: the JAX package's device SIFT and
+    AdaLAM on the CPU over a shortlist this phase wrote): the images' digest
+    is the reference's; every shortlisted pair has a JAX count; at most 2%
+    of the pairs' counts differ from JAX's, each by at most ``max(1, 10%)``
+    of JAX's count (a DoG value that ties its neighbour in one package and
+    not in the other adds or drops a keypoint, and AdaLAM's inlier counts
+    move with it: 4 of 960 pairs, by 1-3 of 1-37, ``PERF.md`` section 5);
+    mapE/M/H of the re-rank by the card's counts within 0.005 of the re-rank
+    by JAX's over the same ranks."""
+    from image_search_engine_for_historical_research_tpu_torch.evaluation import (
+        compute_map_revisited,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.rerank import rerank_by_inliers
+
+    with open(SAHA_REFERENCE) as f:
+        ref = json.load(f)
+    check(images_digest(jpg, cfg["qimlist"] + cfg["imlist"]) == ref["images_sha256"],
+          "the SAHA photographs differ from those the JAX reference was taken on")
+    check(ref["b"] == b, f"the JAX reference re-ranks the top {ref['b']}, this run {b}")
+    jax_counts = np.array([[ref["counts"].get(q, {}).get(cfg["imlist"][int(j)], -1)
+                            for j in ranks[qi, :b]] for qi, q in enumerate(cfg["qimlist"])])
+    missing = int((jax_counts < 0).sum())
+    check(missing == 0, f"{missing} shortlisted pairs have no JAX count: the HNSW shortlist "
+                        f"is not the one {SAHA_REFERENCE} was taken on")
+    differ = np.argwhere(counts != jax_counts)
+    gap = np.abs(counts - jax_counts)
+    rec = {"pairs": int(counts.size), "differ": [
+               {"query": cfg["qimlist"][qi], "db": cfg["imlist"][int(ranks[qi, j])],
+                "card": int(counts[qi, j]), "jax": int(jax_counts[qi, j])} for qi, j in differ],
+           "max_gap": int(gap.max())}
+    for label, c in (("card", counts), ("jax", jax_counts)):
+        r = compute_map_revisited(rerank_by_inliers(ranks, c, b), cfg["gnd"], SAHA_DATASET)
+        rec[f"map_{label}_counts"] = {"E": r.mapE, "M": r.mapM, "H": r.mapH}
+    check(len(differ) <= 0.02 * counts.size
+          and bool((gap <= np.maximum(1, np.ceil(0.1 * jax_counts))).all()),
+          f"AdaLAM counts: {len(differ)} of {counts.size} shortlisted pairs differ from the "
+          f"JAX package's: {rec['differ']}")
+    for k in "EMH":
+        check(abs(rec["map_card_counts"][k] - rec["map_jax_counts"][k]) <= 0.005,
+              f"map{k} after sift: {rec['map_card_counts'][k]} with the card's counts, "
+              f"{rec['map_jax_counts'][k]} with JAX's")
+    return rec
+
+
+def write_saha_shortlist(cfg, jpg, ranks, counts, maps, b):
+    """``scripts/saha_shortlist.json`` (not committed): what
+    ``scripts/saha_jax_witness.py`` re-ranks with the JAX package (the
+    layout's names and gnd, the baseline ranks, the card's counts of the
+    top-``b`` pairs, the mAPs)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                           "saha_shortlist.json"), "w") as f:
+        json.dump({"images_sha256": images_digest(jpg, cfg["qimlist"] + cfg["imlist"]),
+                   "b": b, "qimlist": cfg["qimlist"], "imlist": cfg["imlist"],
+                   "gnd": [{k: np.asarray(g[k]).tolist() for k in ("easy", "hard", "junk")}
+                           for g in cfg["gnd"]],
+                   "ranks": np.asarray(ranks).tolist(), "counts": counts.tolist(),
+                   "map": maps}, f)
+
+
+def saha_phase(x1m_root, oneshot, tmp, flush, card, n_check=4, b=30):
+    """SAHA geometric verification at the JAX defaults (device SIFT at
+    1000 x 1000, 1,024 keypoints, 4 octaves; AdaLAM's DEFAULT_CONFIG; b=30,
+    pair_batch=8, dispatch scan) through ``cli.test_reranking --methods sift
+    --sift-backend device --matching-method HNSW`` over ``saha_layout``'s
+    dataset (32 queries, 224 views), with the features kept in a store.
+    Checks: K1 launched by the HNSW matcher; the shortlist's AdaLAM counts
+    against the JAX package's (``saha_against_jax``); the device SIFT of 8
+    images on the card against the CPU (at least 99% of the valid keypoints
+    within 1e-2 px, descriptors within 1e-3); AdaLAM counts of ``n_check``
+    queries x ``b`` candidates (each query's own views, then other scenes')
+    from the stored features, card against CPU (at most 2% of the pairs
+    differ, by at most 1) and the banked pair batches against the per-pair
+    verifier (equal). The CPU halves run in child processes beside the
+    card's work. mAP E/M/H before and after are printed: half the views are
+    mirrored and SIFT is not mirror-invariant, and the JAX package's re-rank
+    lowers mapM on these photographs too (``PERF.md`` section 5), so mapM
+    is held to JAX's, not to the baseline."""
+    from image_search_engine_for_historical_research_tpu_torch import rerank
+    from image_search_engine_for_historical_research_tpu_torch.cli import test_reranking
+    from image_search_engine_for_historical_research_tpu_torch.data import configdataset
+    from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
+    from image_search_engine_for_historical_research_tpu_torch.ops import sift
+    from image_search_engine_for_historical_research_tpu_torch.rerank import geometric
+
+    root, outputs = os.path.join(tmp, "saha_data"), os.path.join(tmp, "saha_out")
+    jpg = saha_layout(x1m_root, oneshot, root, outputs)
+    cfg = configdataset(SAHA_DATASET, root)
+    store = os.path.join(tmp, "saha_sift")
+    spent = {k: [0.0, 0] for k in ("sift_extract_device", "adalam_count_pairs", "sift_rerank")}
+    seen = {}
+    saved = {}
+
+    def timer(mod, name):
+        fn = getattr(mod, name)
+        saved[(mod, name)] = fn
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t0
+            spent[name][1] += len(a[0])
+            seen[name] = (a, res)
+            return res
+
+        setattr(mod, name, timed)
+
+    argv = ["--dataset", SAHA_DATASET, "--data-root", root, "--outputs", outputs,
+            "--matching-method", "HNSW", "--methods", "sift", "--sift-backend", "device",
+            "--sift-store", store, "--device", "cuda"]
+    for mod, name in ((geometric, "sift_extract_device"), (geometric, "adalam_count_pairs"),
+                      (rerank, "sift_rerank")):
+        timer(mod, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bs.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = test_reranking.run(test_reranking.build_parser().parse_args(argv))
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    out = {"cli_s": time.perf_counter() - t0, "k1_launches": bs.launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "map": {k: {"E": r.mapE, "M": r.mapM, "H": r.mapH} for k, r in res.items()}}
+    (sift_s, n_img), (ada_s, n_pairs), (rr_s, _) = (spent[k] for k in (
+        "sift_extract_device", "adalam_count_pairs", "sift_rerank"))
+    out.update(sift_images=n_img, sift_s=sift_s, sift_img_per_s=n_img / sift_s,
+               adalam_pairs=n_pairs, adalam_s=ada_s, adalam_pairs_per_s=n_pairs / ada_s,
+               rerank_s=rr_s)
+    print(f"SAHA cli.test_reranking --methods sift: {json.dumps(out)} ({card})", flush=True)
+    check(out["k1_launches"] > 0, "the HNSW matcher of the SAHA run did not launch K1")
+    check(n_pairs == 32 * b, f"SAHA verified {n_pairs} pairs, want {32 * b}")
+    ranks = np.asarray(seen["sift_rerank"][0][2])
+    counts = np.asarray(seen["adalam_count_pairs"][1]).reshape(len(ranks), b)
+    write_saha_shortlist(cfg, jpg, ranks, counts, out["map"], b)
+
+    # the card-vs-CPU checks: 8 images' SIFT, and n_check queries x b pairs
+    sift_names = ["q_s0"] + [f"db_s0_{i}" for i in range(7)]
+    pairs = [(f"q_s{c}", n) for c in range(n_check) for n in [f"db_s{c}_{i}" for i in range(7)]
+             + [f"db_s{(c + 1 + k // 7) % 32}_{k % 7}" for k in range(b - 7)]]
+    # the re-rank extracted only its queries' shortlists: add what the check needs
+    geometric.sift_offline([os.path.join(jpg, n + ".jpg") for n in
+                            sorted({n for pair in pairs for n in pair})], store,
+                           backend="device", device="cuda")
+    children, cpu_outs, jobs = start_cpu_side(jpg, sift_names, store, pairs, tmp)
+    try:
+        out["jax_reference"] = saha_against_jax(cfg, jpg, ranks, counts, b)
+        print(f"SAHA against the JAX package: {json.dumps(out['jax_reference'])} ({card})",
+              flush=True)
+        budgets = sift.default_budgets(1024, 4)
+        sift_card = {k: v.cpu().numpy() for k, v in sift.sift_program(torch.as_tensor(
+            sift_images([os.path.join(jpg, n + ".jpg") for n in sift_names]), device="cuda"),
+            4, budgets).items()}
+        feats = {n: geometric.LocalFeatures.load(os.path.join(store, n + ".npz"))
+                 for n in {n for pair in pairs for n in pair}}
+        fq, fc = [feats[q] for q, _ in pairs], [feats[c] for _, c in pairs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ada_card = geometric.adalam_count_pairs(fq, fc, pair_batch=8, device="cuda")
+        card_s = time.perf_counter() - t0
+        verify = geometric.make_adalam_verifier(device="cuda")
+        per_pair = [verify(x, y) for x, y in zip(fq, fc)]
+        check(per_pair == ada_card.tolist(), "AdaLAM: banked pair batches and the per-pair "
+                                             "verifier give different counts on the card")
+        out["ops"] = saha_ops(jpg, fq, fc, flush, card)
+        for c in children:
+            check(c.wait() == 0, f"a SAHA CPU-side process exited with {c.returncode}")
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    cpu = dict(np.load(cpu_outs[0]))
+    out["sift_card_vs_cpu"] = sift_agreement(sift_card, cpu)
+    out["sift_card_vs_cpu"]["cpu_s"] = float(cpu["s"])
+    print(f"SAHA SIFT card vs CPU: {json.dumps(out['sift_card_vs_cpu'])} ({card})", flush=True)
+    check(out["sift_card_vs_cpu"]["matched_share"] >= 0.99,
+          f"device SIFT: card and CPU keypoints agree on "
+          f"{out['sift_card_vs_cpu']['matched_share']:.4f} < 0.99")
+    parts = [dict(np.load(f)) for f in cpu_outs[1:]]
+    by_pair = {p: int(c) for (_, pr), part in zip(jobs[1:], parts)
+               for p, c in zip(map(tuple, pr), part["counts"])}
+    ada_cpu = np.array([by_pair[p] for p in pairs])
+    diff = np.nonzero(ada_card != ada_cpu)[0]
+    ada = {"pairs": len(pairs), "card_s": card_s, "card_pairs_per_s": len(pairs) / card_s,
+           "cpu_s": max(float(part["s"]) for part in parts), "cpu_processes": len(parts),
+           "differ": [{"pair": pairs[i], "card": int(ada_card[i]), "cpu": int(ada_cpu[i])}
+                      for i in diff],
+           "max_gap": int(np.abs(ada_card - ada_cpu).max()),
+           "own_view_counts": [ada_card[c * b:c * b + 7].tolist() for c in range(n_check)]}
+    out["adalam_card_vs_cpu"] = ada
+    print(f"SAHA AdaLAM card vs CPU: {json.dumps(ada)} ({card})", flush=True)
+    check(len(diff) <= 0.02 * len(pairs) and ada["max_gap"] <= 1,
+          f"AdaLAM counts: {len(diff)} of {len(pairs)} pairs differ between card "
+          f"and CPU, by up to {ada['max_gap']}")
+    return out
+
+
+def saha_ops(jpg, fq, fc, flush, card):
+    """The device parts of SAHA timed alone (median CUDA events, L2 flushed):
+    ``sift_program`` on 8 of the images already on the card (no host
+    decode), its descriptor pass on one octave's patches, one AdaLAM RANSAC
+    block (``_count_inliers`` over (8 pairs, 16 iterations, 256 seeds, 256
+    members)), and one banked-scan block of 8 pairs, with a trace of the
+    last (idle share, top kernels)."""
+    from image_search_engine_for_historical_research_tpu_torch.ops import sift
+    from image_search_engine_for_historical_research_tpu_torch.rerank import adalam, geometric
+
+    names = sorted(os.listdir(jpg))[:8]
+    imgs = torch.as_tensor(sift_images([os.path.join(jpg, n) for n in names]), device="cuda")
+    budgets = sift.default_budgets(1024, 4)
+    out = {"sift_program_b8_ms": time_ms(lambda: sift.sift_program(imgs, 4, budgets), 3, flush)}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    patches = torch.rand((8 * budgets[0], sift.PATCH, sift.PATCH), device="cuda", generator=g)
+    theta = torch.rand(patches.shape[0], device="cuda", generator=g) * 6.28
+    sig = 1.6 + torch.rand(patches.shape[0], device="cuda", generator=g) * 3
+    out["descriptor_pass_ms"] = time_ms(lambda: sift._descriptor(patches, theta, sig), 5, flush)
+    res = torch.rand((8, adalam.BLOCK, 256, 256), device="cuda", generator=g) * 1e-2
+    member = torch.rand((8, 1, 256, 256), device="cuda", generator=g) < 0.3
+    out["ransac_block_ms"] = time_ms(lambda: adalam._count_inliers(res, member, 200.0), 10,
+                                     flush)
+    pair_ms = time_ms(lambda: geometric.adalam_count_pairs(fq[:8], fc[:8], device="cuda"), 5,
+                      flush)
+    out["adalam_8_pairs_ms"] = pair_ms
+    out["adalam_8_pairs_trace"] = trace_op(
+        lambda: geometric.adalam_count_pairs(fq[:8], fc[:8], device="cuda"))
+    print(f"SAHA device ops: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def opq_fit_phase(card):
+    """The refine OPQ fit of ``scripts/measure_torch_opq_fit.py`` (M=32,
+    Ks=256, 10 rounds over 4,112 residual rows) split into its parts."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "measure_torch_opq_fit",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                     "measure_torch_opq_fit.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rec = mod.measure(rows=4112, reps=1)
+    print(f"refine OPQ fit split: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 # the ladder of scripts/measure_train_kr.py: (label, frozen_stages, compute_dtype, remat, tuples)
 TRAIN_RUNGS = (
     ("unfrozen", 0, None, False, 5),
@@ -2197,7 +2669,9 @@ def main():
     diff_1m = timed("diffusion_1m", diffusion_1m_phase, big[:DIFFUSION_ROWS], dev, flush, card)
     torch.cuda.empty_cache()
 
-    # the PQ family at 1M on the same rows, then determinism and streaming
+    # the refine OPQ fit split into its parts, then the PQ family at 1M on
+    # the same rows, determinism and streaming
+    opq_fit = timed("opq_fit", opq_fit_phase, card)
     pq_rec = timed("pq_1m", pq_1m_phase, big, dev, flush, card)
     pq_rec["determinism"] = timed("pq_determinism", pq_determinism_phase, big, dev, card)
 
@@ -2337,6 +2811,11 @@ def main():
         check(bs.launches == 0, f"the slice-7 phases launched the beam kernel {bs.launches} times")
         torch.cuda.empty_cache()
 
+        # slice 9: SAHA geometric verification over the extraction phase's images and rows
+        saha = timed("saha", saha_phase, os.path.join(tmp, "x1m_data"),
+                     os.path.join(tmp, "x1m_oneshot"), tmp, flush, card)
+        torch.cuda.empty_cache()
+
         d_launches, coalesce_rec = served_rerank_phase(
             bs, svc, lambda: online.make_service(online.build_parser().parse_args(
                 argv + ["--device", "cpu"])), gallery, paths, tmp, data_root, dev, card)
@@ -2368,7 +2847,7 @@ def main():
         "route": "cuda",
         "source": "image_search_engine_for_historical_research_tpu_torch/csrc/beam_search.cu",
         "replaces": "image_search_engine_for_historical_research_tpu/ops/pallas_graph.py:354",
-        "launches": launches + d_launches + coalesce_rec["beam_launches"],
+        "launches": launches + d_launches + coalesce_rec["beam_launches"] + saha["k1_launches"],
         "max_abs_err": err,
         "ms": main_rec["ms"],
         "device_ms": main_rec["device_ms"],
@@ -2382,9 +2861,11 @@ def main():
                                  "dba": rr["dba"], "kr_6k": rr["kr"], "kr_100k": kr_large,
                                  "diffusion_1m": diff_1m, "coalescing": coalesce_rec,
                                  "clis": cli_rec}}))
+    pq_rec["refine_opq_fit"] = opq_fit
     print(json.dumps({"pq": pq_rec}))
     print(json.dumps({"matchers": match_rec}))
     print(json.dumps({"slice7": slice7}))
+    print(json.dumps({"saha": saha}))
     print(json.dumps({"phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,21 @@
 """Re-ranking method comparison over stored features.
 
 Port of ``image_search_engine_for_historical_research_tpu/cli/test_reranking.py``
-for the global-descriptor methods: load a dataset's stored features, run the
-base matcher, then each requested re-ranking method, and report the revisited
-mAP of each. ``qge`` is alphaQE + diffusion, ``aqe`` / ``dba`` search the
+without the ``loftr`` method: load a dataset's stored features, run the base
+matcher, then each requested re-ranking method, and report the revisited mAP
+of each. ``qge`` is alphaQE + diffusion, ``aqe`` / ``dba`` search the
 augmented descriptors exactly, ``kr`` is k-reciprocal, ``diffusion`` diffuses
-from the raw queries. ``sift`` and ``loftr`` (the local-feature re-rankers)
-exit at start-up naming their ROADMAP item.
+from the raw queries, ``sift`` re-ranks each query's top ``min(30, K)`` by
+AdaLAM-verified SIFT matches (``rerank.sift_rerank``: ``--sift-backend cv2``
+extracts with OpenCV on the host, ``device`` (or JAX's name ``tpu``) with
+``ops.sift`` on ``--device``; ``--sift-store`` keeps the features). ``loftr``
+exits at start-up naming its ROADMAP item. With ``--sift-backend cv2`` a
+machine without OpenCV fails at start-up on its import.
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.test_reranking \
-      --dataset roxford5k --data-root data/test --methods qge,aqe,dba,kr [--device cuda]
+      --dataset roxford5k --data-root data/test --methods qge,aqe,dba,kr,sift \
+      [--sift-backend device] [--device cuda]
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from ..evaluation import compute_map_revisited
 from ..ops.topk import exact_ranks
 from .common import add_common_args, check_matcher, dispatch_matcher, matcher_kwargs
 
-NOT_PORTED = {"sift", "loftr"}
+NOT_PORTED = {"loftr"}
 
 
 def build_parser():
@@ -35,8 +40,12 @@ def build_parser():
     p.add_argument("--dataset", required=True)
     p.add_argument("--data-root", required=True)
     p.add_argument("--methods", default="qge",
-                   help="comma list: qge,aqe,dba,kr,diffusion (sift and loftr are "
-                        "not ported yet)")
+                   help="comma list: qge,aqe,dba,kr,diffusion,sift (loftr is not "
+                        "ported yet)")
+    p.add_argument("--sift-store", default=None)
+    p.add_argument("--sift-backend", default="cv2", choices=["cv2", "device", "tpu"],
+                   help="device (or tpu, JAX's name) = batched device SIFT (ops.sift) "
+                        "instead of per-image host OpenCV")
     return p
 
 
@@ -46,8 +55,10 @@ def run(args):
     local = sorted(NOT_PORTED.intersection(methods))
     if local:
         raise SystemExit(f"--methods {','.join(local)} is not ported yet: see ROADMAP, "
-                         "the local-feature re-rankers")
+                         "the local-feature re-rankers (LoFTR)")
     dev = resolve_device(args.device)
+    if "sift" in methods and args.sift_backend == "cv2":
+        import cv2  # noqa: F401  (no OpenCV: fail here, before any work)
     check_matcher(args.matching_method)
     cfg = configdataset(args.dataset, args.data_root)
     vecs, _ = load_path_features(args.dataset, root=args.outputs)
@@ -73,6 +84,12 @@ def run(args):
             ranks = rerank.kr_rerank(q, v)
         elif method == "diffusion":
             ranks, _ = rerank.diffusion_rerank(v, q, n_trunc=min(2000, K), kd=min(200, K))
+        elif method == "sift":
+            qpaths = [cfg["qim_fname"](cfg, i) for i in range(cfg["nq"])]
+            dpaths = [cfg["im_fname"](cfg, i) for i in range(cfg["n"])]
+            ranks = torch.as_tensor(rerank.sift_rerank(
+                qpaths, dpaths, idx, b=min(30, K), store_dir=args.sift_store,
+                backend=args.sift_backend, device=dev))
         else:
             print(f"skipping unknown method {method!r}")
             continue

@@ -16,6 +16,8 @@ from .images import (
     load_train_image,
     path_all_jpg,
     pil_loader,
+    save_rank_montage,
+    unnormalize,
 )
 from .store import (
     chunked_feature_relpaths,
@@ -33,6 +35,7 @@ __all__ = [
     "IMAGENET_MEAN", "IMAGENET_STD", "Batch", "bucket_batches", "cid2filename",
     "imresize", "imthumbnail", "iter_test_images", "load_test_image",
     "load_test_images_native", "load_train_image", "path_all_jpg", "pil_loader",
+    "save_rank_montage", "unnormalize",
     "feature_path", "load_path_features", "save_path_feature",
     "chunked_feature_relpaths", "chunked_feature_source", "save_feature_shard",
     "shard_resume_point", "shards_dir",

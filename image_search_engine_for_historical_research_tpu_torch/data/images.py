@@ -1,15 +1,16 @@
 """Image loading and padded-canvas batching (host side, numpy + PIL).
 
 The port's own copy of
-``image_search_engine_for_historical_research_tpu/data/images.py`` (:23-230,
-without the rank montage): truncated-file-tolerant PIL loading, test-mode bbx
+``image_search_engine_for_historical_research_tpu/data/images.py`` (all of
+it): truncated-file-tolerant PIL loading, test-mode bbx
 crop + thumbnail, ImageNet normalization, the batch decode through the
 native threaded JPEG loader (``load_test_images_native``), the train-mode
 short-side resize + random square crop (``load_train_image``),
 ``bucket_batches``, which groups variable-aspect images into canvases rounded
 up to multiples of 32 (the backbone's stride) with validity masks, the
-recursive jpg listing ``path_all_jpg`` and the SfM120k hashed path
-``cid2filename``.
+recursive jpg listing ``path_all_jpg``, the SfM120k hashed path
+``cid2filename``, ``unnormalize`` and the rank contact sheet
+``save_rank_montage``.
 """
 
 from __future__ import annotations
@@ -219,3 +220,33 @@ def path_all_jpg(directory: str, start: Optional[str] = None):
 def cid2filename(cid: str, prefix: str) -> str:
     """SfM120k image id -> its 3-level hashed path under ``prefix``."""
     return os.path.join(prefix, cid[-2:], cid[-4:-2], cid[-6:-4], cid)
+
+
+def unnormalize(rgb: np.ndarray) -> np.ndarray:
+    """Reverse ImageNet normalization to [0, 1]; NHWC layout."""
+    out = rgb * IMAGENET_STD + IMAGENET_MEAN
+    return np.clip(out, 0.0, 1.0)
+
+
+def save_rank_montage(
+    query_path: str,
+    db_paths: Sequence[str],
+    ranks_row: np.ndarray,
+    out_path: str,
+    k: int = 10,
+    thumb: int = 128,
+):
+    """Write a horizontal query-plus-top-k contact sheet (the reference's
+    test_custom rank visualisation)."""
+    from PIL import Image
+
+    tiles = [query_path] + [db_paths[int(i)] for i in ranks_row[:k]]
+    canvas = Image.new("RGB", (thumb * len(tiles), thumb), (30, 30, 30))
+    for i, p in enumerate(tiles):
+        im = pil_loader(p)
+        im.thumbnail((thumb, thumb))
+        canvas.paste(im, (i * thumb + (thumb - im.size[0]) // 2,
+                          (thumb - im.size[1]) // 2))
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    canvas.save(out_path)
+    return out_path

@@ -13,10 +13,13 @@ row's entries, streamed in chunks with a running top-k.
   uint16 supports few ops, so uint16 codes are written, gathered, copied and
   widened through an int16 view (``codes_long``, ``take_code_rows``,
   ``cat_codes``, ``codes_to_numpy``, ``codes_from_numpy``) and used as int64.
-- **Fits.** Each subspace's fit goes through ``_subspace_fit``, the one place
-  where a PQ fit draws its randomness (``ops.kmeans._init_centers``, seeded by
-  ``ops.kmeans.subspace_seed(seed, m)``); ``train_indices`` is the JAX
-  package's numpy rule, copied exactly.
+- **Fits.** The M subspaces of a fit go through ``_subspace_fits``, the one
+  place where a PQ fit draws its randomness: one batched fit
+  (``ops.kmeans.kmeans_fit_batched``), subspace ``m`` drawing from its own
+  host generator seeded by ``ops.kmeans.subspace_seed(seed, m)``. JAX fits
+  the subspaces one after another; the port runs their k-means++ steps and
+  Lloyd iterations together. ``train_indices`` is the JAX package's numpy
+  rule, copied exactly.
 - **The ADC scan.** ``method="gather"`` gathers each subspace's LUT entries
   by code (``adc``, which the PQ graph walks and the IVF probe use too);
   ``"onehot"`` is the JAX package's one-hot matmul (exact: the same numbers)
@@ -36,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .kmeans import kmeans_fit, subspace_seed
+from .kmeans import kmeans_fit_batched, shared_draws
 from .topk import _bmm_f32, _top_exact
 
 
@@ -129,12 +132,14 @@ def _rows(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
     return x[torch.as_tensor(idx, device=x.device)]
 
 
-def _subspace_fit(sub, Ks, iters, seed, m, M, matmul_dtype=None, init="kmeans++"):
-    """Fit subspace ``m`` of ``M``: the ``(Ks, ds)`` f32 centres of
-    ``kmeans_fit`` seeded by ``subspace_seed(seed, m)``."""
-    del M
-    centers, _ = kmeans_fit(sub, Ks, iters, seed=subspace_seed(seed, m),
-                            matmul_dtype=matmul_dtype, init=init)
+def _subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype=None, init="kmeans++"):
+    """The ``(M, Ks, ds)`` f32 centres of the M subspaces of ``fit_vecs
+    (N, M * ds)``, fitted together (``kmeans_fit_batched`` over a strided
+    ``(M, N, ds)`` view), subspace ``m`` seeded by ``subspace_seed(seed, m)``."""
+    N, D = fit_vecs.shape
+    sub = fit_vecs.reshape(N, M, D // M).transpose(0, 1)
+    centers, _ = kmeans_fit_batched(sub, Ks, iters, seed=seed, matmul_dtype=matmul_dtype,
+                                    init=init)
     return centers
 
 
@@ -147,8 +152,8 @@ def pq_train(
     train_sample: Optional[int] = None,
     matmul_dtype=None,
 ) -> PQCodebook:
-    """Fit the M sub-codebooks, one subspace after another over column
-    slices. Above ``LARGE_KS`` the fit defaults to bf16 assignment matmuls,
+    """Fit the M sub-codebooks, all subspaces together (``_subspace_fits``).
+    Above ``LARGE_KS`` the fit defaults to bf16 assignment matmuls,
     a ``max(65536, 32 * Ks)``-row training subsample and the ``"points"``
     init; all three can be overridden. The full data is encoded exactly
     afterwards by ``pq_encode``."""
@@ -166,12 +171,16 @@ def pq_train(
     fit_vecs = vecs
     if train_sample is not None and train_sample < N:
         fit_vecs = _rows(vecs, train_indices(N, train_sample, seed))
-    centers = [
-        _subspace_fit(fit_vecs[:, m * ds:(m + 1) * ds].contiguous(), Ks, iters, seed, m, M,
-                      matmul_dtype, init)
-        for m in range(M)
-    ]
-    return PQCodebook(codewords=torch.stack(centers))
+    return PQCodebook(codewords=_subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype, init))
+
+
+def _procrustes(m: torch.Tensor) -> torch.Tensor:
+    """``U V^T`` of the SVD of ``m``: the orthogonal Procrustes rotation. On
+    the card through cuSOLVER's QR-based ``gesvd``: torch's default there,
+    the Jacobi ``gesvdj``, is slower on OPQ's (D, D) matrices and returns a
+    rotation further from orthogonal."""
+    u, _, vt = torch.linalg.svd(m, full_matrices=False, driver="gesvd" if m.is_cuda else None)
+    return u @ vt
 
 
 def opq_train(
@@ -200,26 +209,26 @@ def opq_train(
     x = _rows(v, train_indices(N, ts, seed)) if ts < N else v
     R = torch.eye(D, dtype=torch.float32, device=v.device)
     inner = max(4, iters // 3)
-    for _ in range(opq_iters):
-        xr = x @ R
-        cb = pq_train(xr, M=M, Ks=Ks, iters=inner, seed=seed)
-        xhat = pq_decode(cb, pq_encode(cb, xr))            # rotated space
-        del xr
-        u, _, vt = torch.linalg.svd(x.T @ xhat, full_matrices=False)
-        del xhat
-        R = u @ vt
-    fs = train_sample if train_sample is not None else min(N, max(16384, 16 * Ks))
-    if fs <= ts:
-        xr = x @ R
-        del x
-    else:
-        del x
-        fidx = train_indices(N, fs, seed + 7)
-        xr = torch.empty((fs, D), dtype=torch.float32, device=v.device)
-        step = 65536
-        for s in range(0, fs, step):
-            xr[s:s + step] = _rows(v, fidx[s:s + step]) @ R
-    cb = pq_train(xr, M=M, Ks=Ks, iters=iters, seed=seed)
+    with shared_draws():                  # every fit below draws the same numbers
+        for _ in range(opq_iters):
+            xr = x @ R
+            cb = pq_train(xr, M=M, Ks=Ks, iters=inner, seed=seed)
+            xhat = pq_decode(cb, pq_encode(cb, xr))        # rotated space
+            del xr
+            R = _procrustes(x.T @ xhat)
+            del xhat
+        fs = train_sample if train_sample is not None else min(N, max(16384, 16 * Ks))
+        if fs <= ts:
+            xr = x @ R
+            del x
+        else:
+            del x
+            fidx = train_indices(N, fs, seed + 7)
+            xr = torch.empty((fs, D), dtype=torch.float32, device=v.device)
+            step = 65536
+            for s in range(0, fs, step):
+                xr[s:s + step] = _rows(v, fidx[s:s + step]) @ R
+        cb = pq_train(xr, M=M, Ks=Ks, iters=iters, seed=seed)
     return PQCodebook(codewords=cb.codewords, rotation=R)
 
 

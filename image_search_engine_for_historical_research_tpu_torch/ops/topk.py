@@ -27,6 +27,7 @@ constant cannot change the order). Scores are larger-is-better throughout.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -50,6 +51,18 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cuda":
         return torch.mm(a, b.T, out_dtype=torch.float32)
     return a.float() @ b.float().T
+
+
+@contextmanager
+def _full_f32():
+    """TF32 off for cuBLAS and cuDNN inside the block, restored after: f32
+    products and convolutions stay f32 on the card."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -177,11 +177,12 @@ def test_unported_matching_methods_exit(services, method):
 
 def test_unported_modes_raise(services, tmp_path):
     """What the port still refuses, at start-up before any data is read:
-    the local-feature re-rankers of ``cli.test_reranking``; and a sharded
-    diffusion build. ``--coalesce`` and ``rerank="diffusion"`` are served
-    (``tests/test_torch_port_serving.py``)."""
+    the LoFTR re-ranker of ``cli.test_reranking``, also beside ported
+    methods; and a sharded diffusion build. ``--coalesce`` and
+    ``rerank="diffusion"`` are served (``tests/test_torch_port_serving.py``),
+    ``--methods sift`` re-ranks (``tests/test_torch_port_geometric.py``)."""
     _, tsvc, _, _ = services
-    for methods in ("sift", "loftr", "qge,sift"):
+    for methods in ("loftr", "qge,loftr", "sift,loftr"):
         argv = ["--dataset", "roxford5k", "--data-root", str(tmp_path / "missing"),
                 "--methods", methods, "--device", "cpu"]
         with pytest.raises(SystemExit, match="local-feature re-rankers"):

@@ -40,6 +40,13 @@ for pq_ix in (build_pq(rows, M=16, Ks=16, iters=2, refine_M=8, device="cpu"),
               build_ivfpq(rows, nlist=4, M=16, Ks=16, nprobe=2, iters=2, device="cpu")):
     _, ids = pq_ix.search(v, 3)
     assert ids.shape == (1, 3)
+from {PKG}.ops import sift_extract_batch
+from {PKG}.rerank import LocalFeatures
+from {PKG}.rerank.geometric import adalam_count_pairs as count
+img = np.random.default_rng(3).uniform(0, 1, (1, 64, 80)).astype(np.float32)
+f = sift_extract_batch(img, max_kpts=32, n_octaves=2, device="cpu")[0]
+lf = LocalFeatures(f["xy"], 2 * f["scale"], f["angle"], f["desc"], f["count"], (64, 80))
+assert count([lf], [lf], device="cpu").shape == (1,)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "{JAX_PKG}"]
 assert not bad, bad
@@ -104,7 +111,25 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
     from image_search_engine_for_historical_research_tpu_torch.models import init_network
     from image_search_engine_for_historical_research_tpu_torch.serving import SearchService
 
+    from image_search_engine_for_historical_research_tpu_torch.ops import sift_extract_batch
+    from image_search_engine_for_historical_research_tpu_torch.rerank import (
+        AdalamFilter,
+        make_adalam_verifier,
+        make_verifier,
+        sift_rerank,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.rerank.geometric import (
+        adalam_count_pairs,
+    )
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (lambda: sift_extract_batch(np.zeros((1, 32, 32), np.float32)), AdalamFilter,
+                  make_verifier, make_adalam_verifier,
+                  lambda: adalam_count_pairs([None], [None]),
+                  lambda: sift_rerank(["q"], ["d"], np.zeros((1, 1), np.int64),
+                                      backend="device")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_network()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -100,6 +100,109 @@ def test_init_draws_come_from_a_host_generator(data):
     assert torch.equal(cb[1], c1) and torch.equal(ab[1], a1)
 
 
+def _sequential_kmeanspp(x, k, seed):
+    """The k-means++ init as a plain loop, one fit and one step at a time
+    (the form the port had before its fits were batched): the rows a
+    batched fit must pick."""
+    gen = tkm._host_generator(seed)
+    N = x.shape[0]
+    if N > tkm.INIT_SAMPLE:
+        x = x[torch.randperm(N, generator=gen)[:tkm.INIT_SAMPLE]]
+        N = tkm.INIT_SAMPLE
+    first = int(torch.randint(0, N, (), generator=gen))
+    gumbel = torch.empty((k - 1, N)).exponential_(generator=gen).log_().neg_()
+    rows = [first]
+    min_d2 = ((x - x[first][None, :]) ** 2).sum(1)
+    for j in range(1, k):
+        rows.append(int(torch.argmax(torch.log(torch.clamp(min_d2, min=1e-30)) + gumbel[j - 1])))
+        min_d2 = torch.minimum(min_d2, ((x - x[rows[-1]][None, :]) ** 2).sum(1))
+    return x[rows]
+
+
+@pytest.mark.parametrize("init, sample, k", [("kmeans++", None, 24), ("kmeans++", 256, 24),
+                                             ("points", None, 24), ("kmeans++", None, 70)])
+def test_batched_fits_start_from_the_rows_of_single_fits(data, monkeypatch, init, sample, k):
+    """Each fit of a batch draws from its own seed's host generator in a
+    single fit's order (subsample above ``INIT_SAMPLE``, first row, Gumbel
+    noise, drawn ``GUMBEL_STEPS`` steps at a time: ``k=70`` takes three
+    blocks), so it picks the rows of a one-at-a-time k-means++ loop that
+    draws all its noise at once; the batched Lloyd then reaches the single
+    fits' centres."""
+    if sample is not None:
+        monkeypatch.setattr(tkm, "INIT_SAMPLE", sample)
+    x = torch.from_numpy(data[0])
+    M = 4
+    sub = x.reshape(x.shape[0], M, -1).transpose(0, 1)        # (M, N, 16), strided
+    seeds = [tkm.subspace_seed(9, m) for m in range(M)]
+    init_b = tkm._init_centers_batched(sub, k, seeds, init)
+    for m in range(M):
+        single = tkm._init_centers(sub[m].contiguous(), k, seeds[m], init)
+        assert torch.equal(init_b[m], single)
+        if init == "kmeans++":
+            assert torch.equal(single, _sequential_kmeanspp(sub[m].contiguous(), k, seeds[m]))
+    cb, ab = tkm.kmeans_fit_batched(sub, k, 6, seed=9, init=init)
+    for m in range(M):
+        c1, a1 = tkm.kmeans_fit(sub[m].contiguous(), k, 6, seed=seeds[m], init=init)
+        np.testing.assert_allclose(cb[m].numpy(), c1.numpy(), rtol=0, atol=1e-6)
+        assert torch.equal(ab[m], a1)
+
+
+@pytest.mark.parametrize("kw", [{"M": 8, "Ks": 32}, {"M": 16, "Ks": 16, "train_sample": 900},
+                                {"M": 4, "Ks": 2100, "iters": 2}])
+def test_pq_train_equals_a_loop_of_subspace_fits(data, kw):
+    """``pq_train``'s batched subspaces equal one ``kmeans_fit`` a subspace
+    from ``subspace_seed(seed, m)`` on the same rows (1e-6), k-means++ and
+    (above ``LARGE_KS``) the points init with bf16 assignments."""
+    x = torch.from_numpy(data[0])
+    if kw["Ks"] > tpq.LARGE_KS:
+        x = torch.from_numpy(clustered_rows(n=2400, seed=3))
+    cb = tpq.pq_train(x, seed=5, **kw)
+    N, M, Ks = x.shape[0], kw["M"], kw["Ks"]
+    ts = kw.get("train_sample")
+    big = Ks > tpq.LARGE_KS
+    if big and ts is None:
+        ts = max(65536, 32 * Ks)
+    rows = x[torch.as_tensor(tpq.train_indices(N, ts, 5))] if ts is not None and ts < N else x
+    ds = x.shape[1] // M
+    for m in range(M):
+        c, _ = tkm.kmeans_fit(rows[:, m * ds:(m + 1) * ds].contiguous(), Ks, kw.get("iters", 20),
+                              seed=tkm.subspace_seed(5, m),
+                              matmul_dtype=torch.bfloat16 if big else None,
+                              init="points" if big else "kmeans++")
+        np.testing.assert_allclose(cb.codewords[m].numpy(), c.numpy(), rtol=0, atol=1e-6)
+
+
+def test_two_opq_fits_from_one_seed_are_identical(data):
+    x = torch.from_numpy(data[0])
+    a = tpq.opq_train(x, M=8, Ks=32, iters=6, opq_iters=3, seed=4)
+    b = tpq.opq_train(x, M=8, Ks=32, iters=6, opq_iters=3, seed=4)
+    assert torch.equal(a.codewords, b.codewords) and torch.equal(a.rotation, b.rotation)
+    c = tpq.opq_train(x, M=8, Ks=32, iters=6, opq_iters=3, seed=5)
+    assert not torch.equal(a.codewords, c.codewords)
+
+
+@pytest.mark.parametrize("Ks", [32, 40])
+def test_opq_rounds_share_their_draws(data, monkeypatch, Ks):
+    """OPQ's rounds draw once and share the numbers (``shared_draws``, the
+    noise blocks kept once drawn; ``Ks=40`` takes two): the codebook and
+    rotation equal a fit whose every round draws anew, and the draws are
+    made once a fit shape."""
+    import contextlib
+
+    x = torch.from_numpy(data[0])
+    calls = []
+    draw = tkm._init_draws
+    monkeypatch.setattr(tkm, "_init_draws", lambda *a: calls.append(a[1:]) or draw(*a))
+    shared = tpq.opq_train(x, M=8, Ks=Ks, iters=6, opq_iters=3, seed=4)
+    assert len(calls) == 1
+    monkeypatch.setattr(tpq, "shared_draws", contextlib.nullcontext)
+    fresh = tpq.opq_train(x, M=8, Ks=Ks, iters=6, opq_iters=3, seed=4)
+    assert len(calls) == 1 + 4
+    assert torch.equal(shared.codewords, fresh.codewords)
+    assert torch.equal(shared.rotation, fresh.rotation)
+    assert tkm._SHARED.draws is None
+
+
 def test_train_indices_and_top_lax_are_jax_s():
     """``train_indices`` and ``ops.topk._top_exact`` (``lax.top_k``'s
     choice among equal scores) are the JAX package's."""

@@ -137,7 +137,8 @@ def clustered_rows(n=1500, d=64, n_centers=48, spread=0.1, seed=0):
 
 def substitute_jax_fits(monkeypatch):
     """Route every fit that draws randomness in the port's PQ family through
-    the JAX package's own: the per-subspace k-means of ``ops.pq``, OPQ's
+    the JAX package's own: the subspace k-means of ``ops.pq`` (JAX's
+    ``kmeans_fit`` a subspace, as JAX's ``pq_train`` loops), OPQ's
     training in the builders (``index.pq.fit_and_encode`` for PQ and
     HNSW-PQ, ``index.ivfpq``), and IVF's training sample and coarse fit.
     Everything downstream of the fits is then the port's own code."""
@@ -151,11 +152,14 @@ def substitute_jax_fits(monkeypatch):
     from image_search_engine_for_historical_research_tpu_torch.index import pq as tipq
     from image_search_engine_for_historical_research_tpu_torch.ops import pq as tpq
 
-    def subspace_fit(sub, Ks, iters, seed, m, M, matmul_dtype=None, init="kmeans++"):
-        key = jax.random.split(jax.random.PRNGKey(seed), M)[m]
-        c, _ = jkm.kmeans_fit(jnp.asarray(sub.cpu().numpy()), Ks, iters, key, init=init,
-                              matmul_dtype=None if matmul_dtype is None else jnp.bfloat16)
-        return torch.as_tensor(np.asarray(c), device=sub.device)
+    def subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype=None, init="kmeans++"):
+        x = jnp.asarray(fit_vecs.cpu().numpy())
+        ds = x.shape[1] // M
+        keys = jax.random.split(jax.random.PRNGKey(seed), M)
+        fits = [jkm.kmeans_fit(x[:, m * ds:(m + 1) * ds], Ks, iters, keys[m], init=init,
+                               matmul_dtype=None if matmul_dtype is None else jnp.bfloat16)[0]
+                for m in range(M)]
+        return torch.as_tensor(np.stack([np.asarray(c) for c in fits]), device=fit_vecs.device)
 
     def opq_train(vecs, M=16, Ks=256, iters=20, opq_iters=10, seed=42, train_sample=None):
         cb = jpq.opq_train(jnp.asarray(vecs.cpu().numpy()), M=M, Ks=Ks, iters=iters,
@@ -171,7 +175,7 @@ def substitute_jax_fits(monkeypatch):
                               jax.random.PRNGKey(seed))
         return torch.as_tensor(np.asarray(c), device=sample.device)
 
-    monkeypatch.setattr(tpq, "_subspace_fit", subspace_fit)
+    monkeypatch.setattr(tpq, "_subspace_fits", subspace_fits)
     for mod in (tipq, tivf):
         monkeypatch.setattr(mod, "opq_train", opq_train)
     monkeypatch.setattr(tivf, "_train_sample", train_sample)
