@@ -154,6 +154,23 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    features on both (at most 2% of the pairs differ, by at most 1) and per
    pair (equal). Before the PQ phases, the refine OPQ
    fit of ``scripts/measure_torch_opq_fit.py`` split into its parts.
+10. LoFTR and D2-Net over the SAHA layout's photographs, with seeded
+   random weights (the released checkpoints are not in the repository):
+   ``cli.test_reranking --methods loftr --matching-method HNSW
+   --loftr-ckpt`` at the default config and the CLI's settings (480 x 640,
+   b=60, pair_batch 4: 1,920 pairs; the weights written in the released
+   layout), K1's launches counted; 60 named pairs' counts at thr 0.2 and
+   0.0 and 2 pairs' confidence row maxima against the JAX package's
+   (``scripts/loftr_jax_reference.json``, written on the CPU by
+   ``scripts/loftr_jax_witness.py``), 4 pairs against the CPU, the three
+   drivers equal, bf16 beside f32, one block of 4 pairs timed alone; the
+   LoFTR train step's ladder at 480 x 640 (f32, bf16 + remat, + accum=2)
+   and an f64 step at the test config against the CPU; D2-Net's pyramid on
+   8 photographs at 768 x 1024, 2 at 384 x 512 against JAX and the CPU,
+   and its features through AdaLAM on the card and the CPU. The CPU halves
+   run in child processes beside the card's work. (The PQ graph walks'
+   route records are timed over 2 + 3 calls, a depth cut for the time
+   limit.)
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
 before it (``ms``), and the same with a spin kernel queued ahead of the first
@@ -161,12 +178,13 @@ event, so the host's launch gaps are hidden (``device_ms``).
 
 Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
 run: the HNSW and diffusion services, the coalesced batches and the SAHA
-run's HNSW matcher), a
+and LoFTR runs' HNSW matchers), a
 ``{"rerank": {...}}`` line with the re-ranking phases' numbers, a
 ``{"pq": {...}}`` line with the PQ phases' numbers, a ``{"matchers":
 {...}}`` line with the remaining matchers' numbers, a ``{"slice7": {...}}``
 line with the extraction and training numbers, a ``{"saha": {...}}`` line
-with the SAHA phase's, then the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+with the SAHA phase's, a ``{"slice10": {...}}`` line with the LoFTR and
+D2-Net phases', then the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
 CUDA device.
@@ -1034,11 +1052,11 @@ def pq_1m_phase(vecs, dev, flush, card):
         save_index(ix, path)
         return ix, load_index(path, device="cpu")
 
-    def route(name, ix, cpu_ix, **kw):
+    def route(name, ix, cpu_ix, reps=(5, 10), **kw):
         _, ids = ix.search(q, 100, **kw)
         rec = {"recall10": recall_at(exact, ids, 10), "recall100": recall_at(exact, ids, 100),
-               "ms_q70": time_ms(lambda: ix.search(q, 100, **kw), 5, flush),
-               "ms_q1": time_ms(lambda: ix.search(q[:1], 100, **kw), 10, flush)}
+               "ms_q70": time_ms(lambda: ix.search(q, 100, **kw), reps[0], flush),
+               "ms_q1": time_ms(lambda: ix.search(q[:1], 100, **kw), reps[1], flush)}
         s_g, i_g = ix.search(q[:8], 100, **kw)
         s_c, i_c = cpu_ix.search(q[:8].cpu(), 100, **kw)
         rec["cpu_ranks_moved"], rec["cpu_max_rel_gap"] = compare_scored(
@@ -1094,7 +1112,8 @@ def pq_1m_phase(vecs, dev, flush, card):
                                                         "n_seeds": 32}),
                      ("hnsw_pq graph+refine coarse", {"method": "graph+refine", "ef": 320,
                                                       "n_seeds": 32, "centroid_walk": False})):
-        route(name, b, b_cpu, **kw)
+        # the walks take 0.6-0.9 s a call: fewer timed calls (a depth cut)
+        route(name, b, b_cpu, reps=(2, 3) if kw["method"] == "graph+refine" else (5, 10), **kw)
     check(out["routes"]["hnsw_pq adc+refine"]["recall100"]
           >= out["routes"]["hnsw_pq adc"]["recall100"], "HNSW-PQ: adc+refine below adc")
     # the host expansion between the unique-code scan and the re-rank
@@ -2034,25 +2053,28 @@ def saha_cpu_side(jpg, names, store, pairs, out):
     np.savez(out, s=time.perf_counter() - t0, counts=counts)
 
 
+def start_cpu_child(fn, args, out, threads):
+    """``chip_smoke.<fn>(*args, out)`` in a child process that sees no GPU,
+    with ``threads`` CPU threads."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            f"chip_smoke.{fn}(*json.loads(sys.argv[2]))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=str(threads))
+    return subprocess.Popen([sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)),
+                             json.dumps(list(args) + [out])], env=env)
+
+
 def start_cpu_side(jpg, names, store, pairs, tmp, pair_batch=8):
-    """``saha_cpu_side`` in child processes that see no GPU, one thread each
-    (the CPU's AdaLAM and SIFT scale poorly with threads): one for the SIFT
-    of ``names``, and one for each slice of whole ``pair_batch`` blocks of
+    """``saha_cpu_side`` in child processes, one thread each (the CPU's
+    AdaLAM and SIFT scale poorly with threads): one for the SIFT of
+    ``names``, and one for each slice of whole ``pair_batch`` blocks of
     ``pairs``, as many as leave this process two cores. Returns the
     processes and their output files, the SIFT's first."""
-    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-            "chip_smoke.saha_cpu_side(*json.loads(sys.argv[2]))")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     blocks = [pairs[i:i + pair_batch] for i in range(0, len(pairs), pair_batch)]
     k = max(1, min(len(blocks), (os.cpu_count() or 4) - 3))
     jobs = [(names, [])] + [([], [p for blk in blocks[i::k] for p in blk]) for i in range(k)]
-    procs, outs = [], []
-    for i, (n, pr) in enumerate(jobs):
-        outs.append(os.path.join(tmp, f"saha_cpu_side_{i}.npz"))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)),
-             json.dumps([jpg, n, store, pr, outs[-1]])],
-            env=env))
+    outs = [os.path.join(tmp, f"saha_cpu_side_{i}.npz") for i in range(len(jobs))]
+    procs = [start_cpu_child("saha_cpu_side", [jpg, n, store, pr], out, 1)
+             for (n, pr), out in zip(jobs, outs)]
     return procs, outs, jobs
 
 
@@ -2604,6 +2626,548 @@ def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
     return out
 
 
+# ------------------------------------------------ slice 10: LoFTR and D2-Net
+
+LOFTR_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                               "loftr_jax_reference.json")
+LOFTR_SEED = 0                 # the seeded random weights of the LoFTR and D2-Net phases
+LOFTR_RES = (640, 480)         # the CLI's resolution (w, h)
+D2NET_HELD = (512, 384)        # the photographs held against the CPU and JAX (w, h): a depth cut
+D2NET_PROJ = 8                 # descriptor projections the JAX reference keeps a keypoint
+D2NET_HELD_NAMES = ("q_s0", "q_s1")
+
+
+def loftr_witness_pairs(n_queries=4, n_other=8):
+    """The (query, view) names held against the JAX package: each of the
+    first ``n_queries`` scenes' query against its 7 own views and
+    ``n_other`` views of other scenes, keyed by name (a moved HNSW
+    shortlist cannot stale them)."""
+    pairs = []
+    for c in range(n_queries):
+        pairs += [(f"q_s{c}", f"db_s{c}_{i}") for i in range(7)]
+        pairs += [(f"q_s{c}", f"db_s{(c + 1 + k) % 32}_{k % 7}") for k in range(n_other)]
+    return pairs
+
+
+def loftr_images(jpg, names, resolution=LOFTR_RES):
+    """(n, h, w, 1) grayscale in [0, 1], read as ``loftr_rerank`` reads them
+    (OpenCV)."""
+    import cv2
+
+    w, h = resolution
+    return np.stack([cv2.resize(cv2.imread(os.path.join(jpg, n + ".jpg"), cv2.IMREAD_GRAYSCALE),
+                                (w, h)).astype(np.float32)[..., None] / 255.0 for n in names])
+
+
+def d2net_image(path, size=D2NET_HELD):
+    """RGB in [0, 1], (h, w, 3) f32 at ``size`` (PIL bilinear)."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB").resize(size, Image.BILINEAR),
+                      np.float32) / 255.0
+
+
+def arrays_digest(arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def state_digest(module):
+    """sha256 over a module's ``state_dict`` (key order, f32 bytes)."""
+    sd = module.state_dict()
+    return arrays_digest(sd[k].detach().cpu().numpy() for k in sorted(sd))
+
+
+def d2net_summary(kpts, scores, desc, n_full=16):
+    """What the JAX reference keeps of a pyramid: every keypoint and score,
+    each descriptor's projections on ``D2NET_PROJ`` seeded unit directions,
+    and ``n_full`` evenly spaced whole descriptors."""
+    dirs = np.random.default_rng(0).standard_normal((desc.shape[1], D2NET_PROJ))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    full = np.linspace(0, len(desc) - 1, min(n_full, len(desc))).astype(int)
+    return {"kpts": kpts.tolist(), "scores": scores.tolist(),
+            "proj": (desc.astype(np.float64) @ dirs).tolist(), "full_idx": full.tolist(),
+            "full": desc[full].tolist()}
+
+
+def d2net_agreement(got, ref, tol_px=1e-2, tol_desc=1e-4, tol_proj=1e-3, tol_score=1e-5):
+    """A pyramid ``got`` (kpts, scores, desc) against a reference pyramid or
+    ``d2net_summary``: each reference keypoint is matched to ``got``'s
+    nearest keypoint of the same scale within ``tol_px``; the keypoints on
+    one side only are the knife edges (``hard_detection``'s exact
+    equalities). Over the matched ones: the worst position gap, score gap
+    relative to the largest score, and descriptor gaps (whole rows where
+    the reference keeps them, projections elsewhere)."""
+    if not isinstance(ref, dict):
+        ref = d2net_summary(*ref, n_full=len(ref[0]))
+    k, s, d = got
+    rk, rs = np.asarray(ref["kpts"]), np.asarray(ref["scores"])
+    dirs = np.random.default_rng(0).standard_normal((d.shape[1], D2NET_PROJ))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    proj = d.astype(np.float64) @ dirs
+    full = dict(zip(ref["full_idx"], np.asarray(ref["full"])))
+    match, worst = {}, {"px": 0.0, "score": 0.0, "desc": 0.0, "proj": 0.0}
+    top = max(float(np.abs(rs).max()) if len(rs) else 1.0, 1e-30)
+    for i, p in enumerate(rk):
+        same = np.nonzero(k[:, 2] == p[2])[0]
+        if not len(same):
+            continue
+        gap = np.abs(k[same, :2] - p[:2]).max(1)
+        j = same[int(np.argmin(gap))]
+        if gap.min() > tol_px or j in match.values():
+            continue
+        match[i] = j
+        worst["px"] = max(worst["px"], float(gap.min()))
+        worst["score"] = max(worst["score"], abs(float(s[j]) - float(rs[i])) / top)
+        worst["proj"] = max(worst["proj"], float(np.abs(proj[j] - ref["proj"][i]).max()))
+        if i in full:
+            worst["desc"] = max(worst["desc"], float(np.abs(d[j] - full[i]).max()))
+    rec = {"ref": len(rk), "got": len(k), "matched": len(match),
+           "knife_edges": len(rk) + len(k) - 2 * len(match), "worst": worst}
+    rec["ok"] = bool(rec["knife_edges"] <= 0.01 * max(len(rk), 1) and len(match) > 0
+                     and worst["px"] <= tol_px and worst["score"] <= tol_score
+                     and worst["desc"] <= tol_desc and worst["proj"] <= tol_proj)
+    return rec
+
+
+D2NET_PAIRS = [("q_s0", "db_s0_0"), ("q_s0", "db_s0_1"), ("q_s0", "db_s1_0"),
+               ("q_s0", "db_s1_1"), ("q_s1", "db_s1_0"), ("q_s1", "db_s1_1"),
+               ("q_s1", "db_s0_0"), ("q_s1", "db_s0_1")]
+
+
+def loftr_cpu_side(jpg, pairs, out):
+    """The CPU half of the LoFTR card-vs-CPU check, in a child process: the
+    port's counts of ``pairs`` (one batch) at thr 0.2 and 0.0 with the
+    seeded weights, and the row maxima of the first pair's confidence
+    matrix, written to ``out`` (npz) with their seconds."""
+    from image_search_engine_for_historical_research_tpu_torch.models import loftr
+
+    t0 = time.perf_counter()
+    q, c = (loftr_images(jpg, [p[i] for p in pairs]) for i in (0, 1))
+    res = {}
+    for thr in (0.2, 0.0):
+        m = loftr.init_matcher(seed=LOFTR_SEED, device="cpu", thr=thr)
+        res[f"counts_{thr}"] = loftr.make_batched_count_fn(m)(q, c).numpy()
+    with torch.inference_mode():
+        _, conf = m(torch.from_numpy(q[:1]), torch.from_numpy(c[:1]), fine=False,
+                    return_conf=True)
+    np.savez(out, s=time.perf_counter() - t0, row_max=conf[0].amax(1).numpy(), **res)
+
+
+def d2net_cpu_side(jpg, held, pairs, out):
+    """The CPU half of the D2-Net checks, in a child process: the port's
+    pyramids of the ``held`` photographs at ``D2NET_HELD`` and the AdaLAM
+    counts of ``pairs`` from features extracted on the CPU, to ``out``."""
+    from image_search_engine_for_historical_research_tpu_torch.models import d2net
+    from image_search_engine_for_historical_research_tpu_torch.rerank import geometric
+
+    t0 = time.perf_counter()
+    m = d2net.init_d2net(seed=LOFTR_SEED, device="cpu")
+    res = {}
+    for i, n in enumerate(held):
+        res[f"k{i}"], res[f"s{i}"], res[f"d{i}"] = d2net.process_multiscale(
+            d2net_image(os.path.join(jpg, n + ".jpg")), m)
+    feats = {n: d2net.extract_d2net_features(m, d2net_image(os.path.join(jpg, n + ".jpg")))
+             for n in sorted({n for p in pairs for n in p})}
+    res["counts"] = geometric.adalam_count_pairs([feats[q] for q, _ in pairs],
+                                                 [feats[c] for _, c in pairs], device="cpu")
+    np.savez(out, s=time.perf_counter() - t0, **res)
+
+
+def wait_child(proc, label):
+    check(proc.wait() == 0, f"the {label} CPU-side process exited with {proc.returncode}")
+
+
+def counts_against(got, want, label):
+    """Counts held to a reference: at most 2% of the pairs differ, each by
+    at most max(1, 10% of the reference's count)."""
+    got, want = np.asarray(got), np.asarray(want)
+    gap = np.abs(got - want)
+    differ = np.nonzero(gap)[0]
+    rec = {"pairs": len(want), "differ": len(differ), "max_gap": int(gap.max()),
+           "nonzero": int((want > 0).sum()), "distinct": len(set(want.tolist())),
+           "gaps": [(int(i), int(got[i]), int(want[i])) for i in differ]}
+    check(len(differ) <= 0.02 * len(want)
+          and bool((gap <= np.maximum(1, np.ceil(0.1 * want))).all()),
+          f"{label}: {len(differ)} of {len(want)} counts differ: {rec['gaps']}")
+    return rec
+
+
+def loftr_phase(tmp, flush, card, child, b=60):
+    """The LoFTR re-rank at full width: the default ``LoFTRConfig`` (d 256,
+    8 coarse layers), 480 x 640, the seeded weights written as a
+    released-layout file (``{"state_dict": {"matcher.*"}}``).
+    (a) ``cli.test_reranking --methods loftr --matching-method HNSW
+    --loftr-ckpt`` over ``saha_layout``'s dataset at the CLI's settings
+    (b=60, pair_batch 4: 1,920 pairs): seconds, pairs/s, peak memory, mAP
+    before and after, the count histogram, K1's launches; the CLI's counts
+    of the pairs the JAX reference holds. (b) The ``loftr_witness_pairs``
+    through ``loftr_rerank`` with the batched driver at thr 0.2 and 0.0,
+    against ``LOFTR_REFERENCE`` (``counts_against``), and the row maxima of
+    2 pairs' confidence matrices within 1e-3 of JAX's (bf16's gap printed
+    beside them). (c) ``child``'s CPU
+    counts of the first 4 pairs at both thresholds equal the card's, and the
+    row maxima within 1e-3. (d) Per-pair, batched and banked counts of 16
+    pairs equal. (e) bf16 counts beside f32's. Then one block of 4 pairs
+    timed alone (count path and full forward) with its FLOPs and a trace."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from image_search_engine_for_historical_research_tpu_torch import rerank
+    from image_search_engine_for_historical_research_tpu_torch.cli import test_reranking
+    from image_search_engine_for_historical_research_tpu_torch.data import configdataset
+    from image_search_engine_for_historical_research_tpu_torch.models import loftr
+    from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
+
+    root, outputs = os.path.join(tmp, "saha_data"), os.path.join(tmp, "saha_out")
+    jpg = os.path.join(root, SAHA_DATASET, "jpg")
+    with open(LOFTR_REFERENCE) as f:
+        ref = json.load(f)
+    pairs = [tuple(p) for p in ref["pairs"]]
+    check(pairs == loftr_witness_pairs(), "the JAX reference holds other pairs")
+    names = sorted({n for p in pairs for n in p})
+    check(images_digest(jpg, names) == ref["images_sha256"],
+          "the LoFTR photographs differ from those the JAX reference was taken on")
+    host = loftr.init_matcher(seed=LOFTR_SEED, device="cpu")
+    check(state_digest(host) == ref["weights_sha256"],
+          "the seeded LoFTR weights differ from those the JAX reference was taken on")
+    ckpt = os.path.join(tmp, "loftr_seeded_outdoor_layout.ckpt")
+    torch.save({"state_dict": {"matcher." + k: v for k, v in host.state_dict().items()}}, ckpt)
+    del host
+    out = {"decoded_images_equal": arrays_digest(loftr_images(jpg, names))
+           == ref["decoded_sha256"], "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(label):
+        torch.cuda.synchronize()
+        out["seconds"][label] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+
+    # (a) the CLI
+    made, spent = [], {}
+    make, rr = loftr.make_batched_count_fn, rerank.loftr_rerank
+
+    def recording_make(matcher, compute_dtype=None):
+        fn = make(matcher, compute_dtype)
+
+        def counted(a, c):
+            made.append(fn(a, c))
+            return made[-1]
+
+        return counted
+
+    def timed_rr(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = rr(*a, **kw)
+        torch.cuda.synchronize()
+        spent["s"], spent["ranks"] = time.perf_counter() - t0, np.asarray(a[2])
+        return r
+
+    argv = ["--dataset", SAHA_DATASET, "--data-root", root, "--outputs", outputs,
+            "--matching-method", "HNSW", "--methods", "loftr", "--device", "cuda",
+            "--loftr-ckpt", ckpt]
+    loftr.make_batched_count_fn, rerank.loftr_rerank = recording_make, timed_rr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bs.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = test_reranking.run(test_reranking.build_parser().parse_args(argv))
+    finally:
+        loftr.make_batched_count_fn, rerank.loftr_rerank = make, rr
+    torch.cuda.synchronize()
+    counts = torch.cat(made).cpu().numpy()
+    Q = len(spent["ranks"])
+    out["cli"] = {"cli_s": time.perf_counter() - t0, "rerank_s": spent["s"],
+                  "pairs": int(len(counts)), "pairs_per_s": len(counts) / spent["s"],
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                  "k1_launches": bs.launches,
+                  "map": {k: {"E": r.mapE, "M": r.mapM, "H": r.mapH} for k, r in res.items()},
+                  "count_histogram": {int(v): int(n) for v, n in
+                                      zip(*np.unique(counts, return_counts=True))}}
+    check(len(counts) == Q * b == 32 * b, f"the CLI counted {len(counts)} pairs, want {32 * b}")
+    check(bs.launches > 0, "the HNSW matcher of the LoFTR run did not launch K1")
+    cfg = configdataset(SAHA_DATASET, root)
+    imlist, qimlist = cfg["imlist"], cfg["qimlist"]
+    in_ref = {p: i for i, p in enumerate(pairs)}
+    overlap = [(int(counts[qi * b + j]), ref["counts"]["0.2"][in_ref[(qimlist[qi], imlist[d])]])
+               for qi in range(Q) for j, d in enumerate(spent["ranks"][qi, :b])
+               if (qimlist[qi], imlist[d]) in in_ref]
+    out["cli"]["vs_jax"] = counts_against([g for g, _ in overlap], [w for _, w in overlap],
+                                          "the CLI's counts of the reference's pairs") \
+        if overlap else {"pairs": 0}
+    print(f"LoFTR cli.test_reranking --methods loftr: {json.dumps(out['cli'])} ({card})",
+          flush=True)
+    lap("setup_and_cli")
+
+    # (b) the witness pairs through loftr_rerank, both thresholds
+    qn = sorted({q for q, _ in pairs})
+    dn = sorted({d for _, d in pairs})
+    wr = np.array([[dn.index(d) for q2, d in pairs if q2 == q] for q in qn])
+    models = {thr: loftr.load_loftr_checkpoint(ckpt, loftr.LoFTRConfig(thr=thr), device="cuda")
+              for thr in (0.2, 0.0)}
+
+    def witness_counts(m, compute_dtype=None):
+        got, fn = [], loftr.make_batched_count_fn(m, compute_dtype)
+        rerank.loftr_rerank([os.path.join(jpg, n + ".jpg") for n in qn],
+                            [os.path.join(jpg, n + ".jpg") for n in dn], wr,
+                            count_fn=lambda a, c: got.append(fn(a, c)) or got[-1],
+                            b=wr.shape[1], resolution=LOFTR_RES, pair_batch=4)
+        return torch.cat(got).cpu().numpy()[:len(pairs)]
+
+    card_counts = {thr: witness_counts(m) for thr, m in models.items()}
+    out["witness"] = {str(thr): counts_against(card_counts[thr], ref["counts"][str(thr)],
+                                               f"LoFTR counts at thr {thr} against JAX")
+                      for thr in (0.2, 0.0)}
+    out["witness"]["non_vacuous"] = [str(thr) for thr in (0.2, 0.0)
+                                     if out["witness"][str(thr)]["distinct"] > 1]
+    check(out["witness"]["non_vacuous"], "the witness counts are constant at both thresholds")
+    q_imgs = loftr_images(jpg, [q for q, _ in pairs])
+    c_imgs = loftr_images(jpg, [c for _, c in pairs])
+    row_gap = {}          # f32, held; bf16, printed beside it as the limit's upper reading
+    for dtype, key, i in ((d, k, i) for d in (torch.float32, torch.bfloat16)
+                          for k, i in (("own", 0), ("other", 7))):
+        with torch.inference_mode():
+            _, conf = models[0.0](*(torch.as_tensor(x[i:i + 1], device="cuda").to(dtype)
+                                    for x in (q_imgs, c_imgs)), fine=False, return_conf=True)
+        got = conf[0].amax(1).cpu().numpy()
+        want = np.asarray(ref["row_max"][key])
+        row_gap[key if dtype == torch.float32 else key + "_bf16"] = float(
+            (np.abs(got - want) / want).max())
+    out["witness"]["row_max_rel_gap"] = row_gap
+    check(max(row_gap["own"], row_gap["other"]) <= 1e-3,
+          f"conf row maxima against JAX: {row_gap}")
+    lap("witness")
+
+    # (d) the three drivers on 16 pairs (blocks of 4, the CLI's shapes), (e) bf16
+    m0 = models[0.0]
+    per_pair = [int(loftr.make_match_fn(m0)(q_imgs[i], c_imgs[i]).num_matches) for i in range(16)]
+    count = loftr.make_batched_count_fn(m0)
+    batched = torch.cat([count(q_imgs[i:i + 4], c_imgs[i:i + 4]) for i in range(0, 16, 4)])
+    bank = np.concatenate([q_imgs[:16], c_imgs[:16]])
+    banked = loftr.make_banked_count_fn(m0)(bank, np.arange(16).reshape(4, 4),
+                                            np.arange(16, 32).reshape(4, 4))
+    out["drivers"] = {"per_pair": per_pair, "batched": batched.tolist(),
+                      "banked": banked.reshape(-1).tolist()}
+    check(per_pair == out["drivers"]["batched"] == out["drivers"]["banked"],
+          f"LoFTR drivers disagree on the card: {out['drivers']}")
+    got = witness_counts(m0, torch.bfloat16)          # (at thr 0.2 every count is 0)
+    out["bf16"] = {"thr": 0.0, "counts": got.tolist(), "f32": card_counts[0.0].tolist(),
+                   "differ": int((got != card_counts[0.0]).sum())}
+    lap("drivers_bf16")
+
+    # one block of 4 pairs alone: the count path, the full forward, bf16
+    blk = [torch.as_tensor(x[:4], device="cuda") for x in (q_imgs, c_imgs)]
+    with torch.inference_mode():
+        with FlopCounterMode(display=False) as fc:
+            m0(*blk, fine=False)
+        flops_count = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            m0(*blk)
+        flops_full = fc.get_total_flops()
+        imgs8 = torch.cat(blk).permute(0, 3, 1, 2)
+        ops = {"count_block_ms": time_ms(lambda: m0(*blk, fine=False), 5, flush),
+               "backbone_coarse_8_images_ms": time_ms(lambda: m0.backbone(imgs8, fine=False),
+                                                      5, flush),
+               "full_block_ms": time_ms(lambda: m0(*blk), 5, flush),
+               "bf16_count_block_ms": time_ms(lambda: m0(*(x.bfloat16() for x in blk),
+                                                         fine=False), 5, flush),
+               "tflop_per_pair_count": flops_count / 4e12,
+               "tflop_per_pair_full": flops_full / 4e12}
+        ops["count_block_f32_peak_share"] = flops_count / (ops["count_block_ms"] / 1e3) / F32_FLOPS
+        ops["backbone_share_of_count_block"] = (ops["backbone_coarse_8_images_ms"]
+                                                / ops["count_block_ms"])
+        ops["count_block_trace"] = trace_op(lambda: m0(*blk, fine=False))
+    out["ops"] = ops
+    lap("ops")
+    print(f"LoFTR witness, drivers, bf16, ops: "
+          f"{json.dumps({k: out[k] for k in ('witness', 'drivers', 'bf16', 'ops')})} ({card})",
+          flush=True)
+
+    # (c) the CPU side
+    wait_child(child[0], "LoFTR")
+    lap("wait_cpu")
+    cpu = dict(np.load(child[1]))
+    out["card_vs_cpu"] = {"pairs": 4, "cpu_s": float(cpu["s"])}
+    for thr in (0.2, 0.0):
+        got, want = card_counts[thr][:4], cpu[f"counts_{thr}"]
+        out["card_vs_cpu"][str(thr)] = {"card": got.tolist(), "cpu": want.tolist()}
+        check(np.array_equal(got, want), f"LoFTR card vs CPU at thr {thr}: {got} vs {want}")
+    with torch.inference_mode():
+        _, conf = m0(*(torch.as_tensor(x[:1], device="cuda") for x in (q_imgs, c_imgs)),
+                     fine=False, return_conf=True)
+    gap = float((np.abs(conf[0].amax(1).cpu().numpy() - cpu["row_max"]) / cpu["row_max"]).max())
+    out["card_vs_cpu"]["row_max_rel_gap"] = gap
+    check(gap <= 1e-3, f"LoFTR conf row maxima card vs CPU: {gap}")
+    print(f"LoFTR card vs CPU: {json.dumps(out['card_vs_cpu'])} ({card})", flush=True)
+    return out
+
+
+LOFTR_TRAIN_RUNGS = (   # scripts/measure_loftr_train.py's ladder: label, dtype, remat, accum
+    ("f32", None, False, None),
+    ("bf16+remat", torch.bfloat16, True, None),
+    ("bf16+remat+accum2", torch.bfloat16, True, 2),
+)
+LOFTR_TRAIN_SMALL = dict(initial_dim=16, block_dims=(16, 24, 32), d_coarse=32, d_fine=16,
+                         nhead=4, coarse_layers=("self", "cross"), thr=0.0, max_matches=24)
+
+
+def loftr_train_phase(tmp, card, batch=4, steps=10):
+    """``make_loftr_train_step`` at 480 x 640 (the default config, seeded
+    weights, AdamW at the JAX defaults) on batches of ``batch`` pairs: four
+    query photographs and their ``random_homography`` warps (jitter 0.1, as
+    ``scripts/measure_loftr_train.py``). Each rung of the ladder (f32; bf16
+    + remat; bf16 + remat + ``accum=2``): 2 warm-up steps then the median of
+    CUDA-event steps, pairs/s, peak memory, FLOPs a step from
+    ``FlopCounterMode`` and ``mfu`` against 67 TFLOP/s f32 or 989 TFLOP/s
+    bf16. The f32 rung takes ``steps`` steps: the BN statistics must not
+    move, and its losses are printed. Then one step at JAX's small test
+    config (32 x 48, 4 pairs) in f64 on the card and on the CPU: the loss
+    within 1e-6 and every gradient leaf within 1e-4 of its norm."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from image_search_engine_for_historical_research_tpu_torch.models import loftr
+    from image_search_engine_for_historical_research_tpu_torch.train import (
+        init_loftr_train_state,
+        make_loftr_optimizer,
+        make_loftr_train_step,
+        random_homography,
+    )
+
+    jpg = os.path.join(tmp, "saha_data", SAHA_DATASET, "jpg")
+    imgs = torch.as_tensor(loftr_images(jpg, [f"q_s{c}" for c in range(batch)]), device="cuda")
+    rng = np.random.default_rng(0)
+    Hs = torch.as_tensor(np.stack([random_homography(rng, 480, 640, jitter=0.1)
+                                   for _ in range(batch)]), device="cuda")
+    out = {"pairs": batch, "hw": [480, 640], "ladder": {}}
+    for label, dtype, remat, accum in LOFTR_TRAIN_RUNGS:
+        m = loftr.init_matcher(seed=LOFTR_SEED, device="cuda", remat=remat)
+        stats = {k: v.clone() for k, v in m.named_buffers()}
+        state = init_loftr_train_state(m, *make_loftr_optimizer(m))
+        step = make_loftr_train_step(compute_dtype=dtype, accum=accum)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        n = steps if label == "f32" else 7
+        for i in range(n):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, loss = step(state, imgs, Hs)
+            e1.record()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            if i >= 2:
+                times.append(e0.elapsed_time(e1) / 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        frozen = all(torch.equal(v, stats[k]) for k, v in m.named_buffers())
+        with FlopCounterMode(display=False) as fc:
+            step(state, imgs, Hs)
+        s = statistics.median(times)
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        rec = {"s_per_step": s, "pairs_per_s": batch / s, "peak_gib": peak,
+               "tflop_per_step": fc.get_total_flops() / 1e12,
+               "mfu": fc.get_total_flops() / s / rate, "peak_tflops": rate / 1e12,
+               "steps": n, "losses": losses, "bn_statistics_unchanged": frozen}
+        out["ladder"][label] = rec
+        print(f"LoFTR train rung {label}: {json.dumps(rec)} ({card})", flush=True)
+        check(np.isfinite(losses).all(), f"LoFTR train {label}: losses {losses}")
+        check(frozen, f"LoFTR train {label}: the frozen BN statistics moved")
+        del m, state, step
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(1)
+    small = rng.uniform(0, 1, (4, 32, 48, 1))
+    small_h = np.stack([random_homography(rng, 32, 48, jitter=0.05) for _ in range(4)])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = loftr.init_matcher(seed=LOFTR_SEED, device=dev, **LOFTR_TRAIN_SMALL).double()
+        state = init_loftr_train_state(m, *make_loftr_optimizer(m))
+        _, loss = make_loftr_train_step()(state, torch.as_tensor(small, device=dev),
+                                          torch.as_tensor(small_h, device=dev))
+        runs[dev] = float(loss), {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+    gaps = {k: float((runs["cuda"][1][k] - g).norm() / g.norm().clamp(min=1e-300))
+            for k, g in runs["cpu"][1].items()}
+    worst = max(gaps, key=gaps.get)
+    out["f64_card_vs_cpu"] = {"loss_card": runs["cuda"][0], "loss_cpu": runs["cpu"][0],
+                              "leaves": len(gaps), "worst_leaf": worst,
+                              "worst_rel_norm_gap": gaps[worst]}
+    print(f"LoFTR train f64 card vs CPU: {json.dumps(out['f64_card_vs_cpu'])} ({card})",
+          flush=True)
+    check(abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-6 * abs(runs["cpu"][0]),
+          f"LoFTR f64 step loss: card {runs['cuda'][0]}, CPU {runs['cpu'][0]}")
+    check(gaps[worst] <= 1e-4, f"LoFTR f64 step gradient {worst}: {gaps[worst]}")
+    return out
+
+
+def d2net_phase(tmp, card, child, n_full=8, full=(1024, 768)):
+    """D2-Net with seeded weights: ``process_multiscale`` (scales 0.5, 1, 2)
+    on ``n_full`` photographs at 768 x 1024 (s an image, peak memory); the
+    ``held`` two at ``D2NET_HELD`` against the JAX reference and against the
+    port's CPU run (``d2net_agreement``: keypoints the same but at knife
+    edges, at most 1% of them; positions within 1e-2 px: the sub-pixel step
+    divides by small Hessian determinants and the half scale's positions are
+    scaled by 8, so the port's CPU run and JAX's differ by up to 1.8e-3 px;
+    scores within 1e-5 of the largest, descriptors within 1e-4);
+    ``extract_d2net_features`` ->
+    ``adalam_count_pairs`` over ``D2NET_PAIRS``: the card's counts equal the
+    CPU's (features extracted there)."""
+    from image_search_engine_for_historical_research_tpu_torch.models import d2net
+    from image_search_engine_for_historical_research_tpu_torch.rerank import geometric
+
+    jpg = os.path.join(tmp, "saha_data", SAHA_DATASET, "jpg")
+    with open(LOFTR_REFERENCE) as f:
+        ref = json.load(f)["d2net"]
+    m = d2net.init_d2net(seed=LOFTR_SEED, device="cuda")
+    check(state_digest(m) == ref["weights_sha256"],
+          "the seeded D2-Net weights differ from those the JAX reference was taken on")
+    out = {}
+    names = [f"q_s{c}" for c in range(n_full)]
+    imgs = [d2net_image(os.path.join(jpg, n + ".jpg"), full) for n in names]
+    d2net.process_multiscale(imgs[0], m)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, kept = [], []
+    for img in imgs:
+        t0 = time.perf_counter()
+        k, _, _ = d2net.process_multiscale(img, m)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        kept.append(len(k))
+    out["full"] = {"images": n_full, "hw": [full[1], full[0]], "s_per_image": statistics.median(times),
+                   "s": times, "keypoints": kept,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"D2-Net process_multiscale at full size: {json.dumps(out['full'])} ({card})", flush=True)
+    check(min(kept) > 0, f"D2-Net kept {kept} keypoints")
+
+    held = list(D2NET_HELD_NAMES)
+    check(ref["held"] == held, f"the JAX reference holds {ref['held']}")
+    check(images_digest(jpg, held) == ref["images_sha256"], "D2-Net photographs differ")
+    pyr = [d2net.process_multiscale(d2net_image(os.path.join(jpg, n + ".jpg")), m) for n in held]
+    out["vs_jax"] = [d2net_agreement(p, ref["pyramids"][n]) for p, n in zip(pyr, held)]
+    print(f"D2-Net card vs JAX: {json.dumps(out['vs_jax'])} ({card})", flush=True)
+    check(all(r["ok"] for r in out["vs_jax"]), f"D2-Net card vs JAX: {out['vs_jax']}")
+    feats = {n: d2net.extract_d2net_features(m, d2net_image(os.path.join(jpg, n + ".jpg")))
+             for n in sorted({n for p in D2NET_PAIRS for n in p})}
+    counts = geometric.adalam_count_pairs([feats[q] for q, _ in D2NET_PAIRS],
+                                          [feats[c] for _, c in D2NET_PAIRS], device="cuda")
+    wait_child(child[0], "D2-Net")
+    cpu = dict(np.load(child[1]))
+    out["vs_cpu"] = [d2net_agreement(p, (cpu[f"k{i}"], cpu[f"s{i}"], cpu[f"d{i}"]))
+                     for i, p in enumerate(pyr)]
+    out["adalam"] = {"pairs": D2NET_PAIRS, "card": counts.tolist(),
+                     "cpu": cpu["counts"].tolist(), "cpu_s": float(cpu["s"])}
+    print(f"D2-Net card vs CPU: {json.dumps({k: out[k] for k in ('vs_cpu', 'adalam')})} "
+          f"({card})", flush=True)
+    check(all(r["ok"] for r in out["vs_cpu"]), f"D2-Net card vs CPU: {out['vs_cpu']}")
+    check(np.array_equal(counts, cpu["counts"]), f"D2-Net AdaLAM counts: {out['adalam']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2816,6 +3380,25 @@ def main():
                      os.path.join(tmp, "x1m_oneshot"), tmp, flush, card)
         torch.cuda.empty_cache()
 
+        # slice 10: LoFTR and D2-Net over the SAHA layout's photographs, the
+        # CPU halves of their checks in child processes beside the card's work
+        jpg10 = os.path.join(tmp, "saha_data", SAHA_DATASET, "jpg")
+        outs10 = [os.path.join(tmp, f"{k}_cpu_side.npz") for k in ("loftr", "d2net")]
+        children = [(start_cpu_child("loftr_cpu_side", [jpg10, loftr_witness_pairs()[:4]],
+                                     outs10[0], 3), outs10[0]),
+                    (start_cpu_child("d2net_cpu_side", [jpg10, list(D2NET_HELD_NAMES),
+                                                        D2NET_PAIRS], outs10[1], 3), outs10[1])]
+        try:
+            slice10 = {"loftr": timed("loftr", loftr_phase, tmp, flush, card, children[0])}
+            slice10["loftr_train"] = timed("loftr_train", loftr_train_phase, tmp, card)
+            slice10["d2net"] = timed("d2net", d2net_phase, tmp, card, children[1])
+        finally:
+            for proc, _ in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        torch.cuda.empty_cache()
+
         d_launches, coalesce_rec = served_rerank_phase(
             bs, svc, lambda: online.make_service(online.build_parser().parse_args(
                 argv + ["--device", "cpu"])), gallery, paths, tmp, data_root, dev, card)
@@ -2847,7 +3430,8 @@ def main():
         "route": "cuda",
         "source": "image_search_engine_for_historical_research_tpu_torch/csrc/beam_search.cu",
         "replaces": "image_search_engine_for_historical_research_tpu/ops/pallas_graph.py:354",
-        "launches": launches + d_launches + coalesce_rec["beam_launches"] + saha["k1_launches"],
+        "launches": (launches + d_launches + coalesce_rec["beam_launches"] + saha["k1_launches"]
+                     + slice10["loftr"]["cli"]["k1_launches"]),
         "max_abs_err": err,
         "ms": main_rec["ms"],
         "device_ms": main_rec["device_ms"],
@@ -2866,6 +3450,7 @@ def main():
     print(json.dumps({"matchers": match_rec}))
     print(json.dumps({"slice7": slice7}))
     print(json.dumps({"saha": saha}))
+    print(json.dumps({"slice10": slice10}))
     print(json.dumps({"phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

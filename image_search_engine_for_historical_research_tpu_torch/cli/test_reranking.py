@@ -1,21 +1,25 @@
 """Re-ranking method comparison over stored features.
 
-Port of ``image_search_engine_for_historical_research_tpu/cli/test_reranking.py``
-without the ``loftr`` method: load a dataset's stored features, run the base
-matcher, then each requested re-ranking method, and report the revisited mAP
-of each. ``qge`` is alphaQE + diffusion, ``aqe`` / ``dba`` search the
-augmented descriptors exactly, ``kr`` is k-reciprocal, ``diffusion`` diffuses
-from the raw queries, ``sift`` re-ranks each query's top ``min(30, K)`` by
-AdaLAM-verified SIFT matches (``rerank.sift_rerank``: ``--sift-backend cv2``
-extracts with OpenCV on the host, ``device`` (or JAX's name ``tpu``) with
-``ops.sift`` on ``--device``; ``--sift-store`` keeps the features). ``loftr``
-exits at start-up naming its ROADMAP item. With ``--sift-backend cv2`` a
-machine without OpenCV fails at start-up on its import.
+Port of ``image_search_engine_for_historical_research_tpu/cli/test_reranking.py``:
+load a dataset's stored features, run the base matcher, then each requested
+re-ranking method, and report the revisited mAP of each. ``qge`` is alphaQE +
+diffusion, ``aqe`` / ``dba`` search the augmented descriptors exactly, ``kr``
+is k-reciprocal, ``diffusion`` diffuses from the raw queries, ``sift``
+re-ranks each query's top ``min(30, K)`` by AdaLAM-verified SIFT matches
+(``rerank.sift_rerank``: ``--sift-backend cv2`` extracts with OpenCV on the
+host, ``device`` (or JAX's name ``tpu``) with ``ops.sift`` on ``--device``;
+``--sift-store`` keeps the features), and ``loftr`` re-ranks the top
+``min(60, K)`` by LoFTR match counts (``rerank.loftr_rerank`` with the
+pair-batched counter, 640 x 480 grayscale, 4 pairs a forward) on
+``--device``, with the weights of ``--loftr-ckpt`` (the released
+``outdoor_ds.ckpt`` layout) or, without it, seeded random weights and a
+warning. With ``--sift-backend cv2`` or ``loftr`` a machine without OpenCV fails at
+start-up on its import.
 
 Usage:
   python -m image_search_engine_for_historical_research_tpu_torch.cli.test_reranking \
-      --dataset roxford5k --data-root data/test --methods qge,aqe,dba,kr,sift \
-      [--sift-backend device] [--device cuda]
+      --dataset roxford5k --data-root data/test --methods qge,aqe,dba,kr,sift,loftr \
+      [--sift-backend device] [--loftr-ckpt outdoor_ds.ckpt] [--device cuda]
 """
 
 from __future__ import annotations
@@ -31,8 +35,6 @@ from ..evaluation import compute_map_revisited
 from ..ops.topk import exact_ranks
 from .common import add_common_args, check_matcher, dispatch_matcher, matcher_kwargs
 
-NOT_PORTED = {"loftr"}
-
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
@@ -40,24 +42,22 @@ def build_parser():
     p.add_argument("--dataset", required=True)
     p.add_argument("--data-root", required=True)
     p.add_argument("--methods", default="qge",
-                   help="comma list: qge,aqe,dba,kr,diffusion,sift (loftr is not "
-                        "ported yet)")
+                   help="comma list: qge,aqe,dba,kr,diffusion,sift,loftr")
     p.add_argument("--sift-store", default=None)
     p.add_argument("--sift-backend", default="cv2", choices=["cv2", "device", "tpu"],
                    help="device (or tpu, JAX's name) = batched device SIFT (ops.sift) "
                         "instead of per-image host OpenCV")
+    p.add_argument("--loftr-ckpt", default=None,
+                   help="released LoFTR ckpt (outdoor_ds.ckpt layout); random "
+                        "weights with a warning if omitted")
     return p
 
 
 def run(args):
     """Returns ``{"baseline": RevisitedResult, <method>: RevisitedResult}``."""
     methods = args.methods.split(",")
-    local = sorted(NOT_PORTED.intersection(methods))
-    if local:
-        raise SystemExit(f"--methods {','.join(local)} is not ported yet: see ROADMAP, "
-                         "the local-feature re-rankers (LoFTR)")
     dev = resolve_device(args.device)
-    if "sift" in methods and args.sift_backend == "cv2":
+    if ("sift" in methods and args.sift_backend == "cv2") or "loftr" in methods:
         import cv2  # noqa: F401  (no OpenCV: fail here, before any work)
     check_matcher(args.matching_method)
     cfg = configdataset(args.dataset, args.data_root)
@@ -90,6 +90,20 @@ def run(args):
             ranks = torch.as_tensor(rerank.sift_rerank(
                 qpaths, dpaths, idx, b=min(30, K), store_dir=args.sift_store,
                 backend=args.sift_backend, device=dev))
+        elif method == "loftr":
+            from ..models import loftr as loftr_mod
+
+            if args.loftr_ckpt:
+                matcher = loftr_mod.load_loftr_checkpoint(args.loftr_ckpt, device=dev)
+            else:
+                print("warning: no --loftr-ckpt; LoFTR re-rank uses random "
+                      "weights (structure-only run)")
+                matcher = loftr_mod.init_matcher(device=dev)
+            qpaths = [cfg["qim_fname"](cfg, i) for i in range(cfg["nq"])]
+            dpaths = [cfg["im_fname"](cfg, i) for i in range(cfg["n"])]
+            ranks = torch.as_tensor(rerank.loftr_rerank(
+                qpaths, dpaths, idx, count_fn=loftr_mod.make_batched_count_fn(matcher),
+                b=min(60, K), resolution=(640, 480)))
         else:
             print(f"skipping unknown method {method!r}")
             continue

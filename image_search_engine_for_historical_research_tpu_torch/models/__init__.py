@@ -1,4 +1,6 @@
-"""Descriptor models: ResNet+SOA backbone, SOLAR retrieval head, extraction."""
+"""Descriptor models: ResNet+SOA backbone, SOLAR retrieval head, extraction.
+The local-feature models are the submodules ``models.loftr`` (LoFTR) and
+``models.d2net`` (D2-Net)."""
 
 from .extract import (
     DEFAULT_SCALES,

@@ -1,5 +1,5 @@
 """Re-ranking: query expansion, kNN-graph diffusion, k-reciprocal, and
-local-feature geometric verification (SIFT + AdaLAM)."""
+local-feature geometric verification (SIFT + AdaLAM, LoFTR)."""
 
 from .qe import (
     average_query_expansion,
@@ -17,6 +17,7 @@ from .adalam import DEFAULT_CONFIG as ADALAM_DEFAULT_CONFIG, AdalamFilter
 from .kr import kr_rerank, kr_rerank_chunked, kr_rerank_scores
 from .geometric import (
     LocalFeatures,
+    loftr_rerank,
     make_adalam_verifier,
     make_verifier,
     rerank_by_inliers,
@@ -32,6 +33,6 @@ __all__ = [
     "diffusion_rerank",
     "ADALAM_DEFAULT_CONFIG", "AdalamFilter",
     "kr_rerank", "kr_rerank_chunked", "kr_rerank_scores",
-    "LocalFeatures", "make_adalam_verifier", "make_verifier", "rerank_by_inliers",
+    "LocalFeatures", "loftr_rerank", "make_adalam_verifier", "make_verifier", "rerank_by_inliers",
     "sift_extract", "sift_extract_device", "sift_offline", "sift_rerank",
 ]

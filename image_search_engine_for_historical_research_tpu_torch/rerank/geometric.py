@@ -6,9 +6,8 @@ Port of the SIFT half of
 (OpenCV on the host), ``sift_extract_device`` (JAX's ``sift_extract_tpu``:
 ``ops.sift`` on ``device``), ``sift_offline``, ``_match_and_verify_impl``,
 ``make_verifier``, ``make_adalam_verifier``, ``rerank_by_inliers``,
-``adalam_count_pairs`` (both ``dispatch`` modes) and ``sift_rerank``.
-``loftr_rerank`` is not ported yet (ROADMAP, the LoFTR half of the
-local-feature re-rankers).
+``adalam_count_pairs`` (both ``dispatch`` modes), ``sift_rerank``, and
+(:492-604) ``loftr_rerank``, the detector-free LoFTR re-rank.
 
 SIFT keypoints come from OpenCV on the host (``backend="cv2"``, imported
 when first used, so a machine without OpenCV fails there) or from the
@@ -424,4 +423,91 @@ def sift_rerank(
             feats_c.append(features(db_paths[int(ranks[qi, j])]))
     counts = adalam_count_pairs(feats_q, feats_c, pair_batch=pair_batch,
                                 device=device).reshape(Q, b)
+    return rerank_by_inliers(ranks, counts, b)
+
+
+# ------------------------------------------------------- LoFTR-class rerank
+
+
+def loftr_rerank(
+    query_paths: Sequence[str],
+    db_paths: Sequence[str],
+    ranks: np.ndarray,
+    match_fn=None,
+    b: int = 60,
+    resolution: Tuple[int, int] = (640, 480),
+    count_fn=None,
+    pair_batch: int = 4,
+    banked_count_fn=None,
+):
+    """Detector-free matcher re-rank: each query's top-``b`` candidates are
+    re-sorted (stably) by their LoFTR match counts. Images are read as
+    grayscale and resized to ``resolution`` (w, h), in [0, 1]. Pass exactly
+    one driver of ``models.loftr``, which carries the matcher's device:
+
+    - ``banked_count_fn`` (``make_banked_count_fn``): the unique images
+      upload once and every block of ``pair_batch`` pairs is gathered from
+      them on the device; the counts are read back once;
+    - ``count_fn`` (``make_batched_count_fn``): one forward a block of
+      ``pair_batch`` pairs (the last padded with its last pair), images
+      uploaded a block at a time; the counts are read back once, at the end;
+    - ``match_fn`` (``make_match_fn``): one pair at a time, each count read
+      back before the next pair.
+    """
+    import cv2
+
+    if sum(f is not None for f in (match_fn, count_fn, banked_count_fn)) != 1:
+        raise ValueError("pass exactly one of match_fn / count_fn / banked_count_fn")
+
+    w, h = resolution
+
+    def load(path):
+        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        if img is None:
+            raise FileNotFoundError(path)
+        img = cv2.resize(img, (w, h)).astype(np.float32) / 255.0
+        return img[:, :, None]
+
+    ranks = np.asarray(ranks)
+    Q = len(query_paths)
+    b = min(b, ranks.shape[1])
+    pairs = [(query_paths[qi], db_paths[int(ranks[qi, j])]) for qi in range(Q) for j in range(b)]
+    P = len(pairs)
+    if P == 0:
+        return ranks.copy()
+
+    if banked_count_fn is not None:
+        uniq: dict = {}
+        for p in [pq for pq, _ in pairs] + [pc for _, pc in pairs]:
+            uniq.setdefault(p, len(uniq))
+        bank = np.stack([load(p) for p in uniq])              # (U, H, W, 1), uploaded once
+        nb = -(-P // pair_batch)
+        pad = nb * pair_batch - P
+        iq = np.array([uniq[q] for q, _ in pairs] + [uniq[pairs[-1][0]]] * pad, np.int64)
+        ic = np.array([uniq[c] for _, c in pairs] + [uniq[pairs[-1][1]]] * pad, np.int64)
+        out = banked_count_fn(bank, iq.reshape(nb, pair_batch), ic.reshape(nb, pair_batch))
+        counts = out.reshape(-1)[:P].cpu().numpy().astype(np.int64).reshape(Q, b)
+        return rerank_by_inliers(ranks, counts, b)
+
+    if count_fn is not None:
+        img_cache: dict = {}
+
+        def cached(path):
+            if path not in img_cache:
+                img_cache[path] = load(path)
+            return img_cache[path]
+
+        outs = []
+        for s in range(0, P, pair_batch):
+            chunk = pairs[s:s + pair_batch]
+            n = len(chunk)
+            chunk = chunk + [chunk[-1]] * (pair_batch - n)    # pad to the block's shape
+            outs.append(count_fn(np.stack([cached(q) for q, _ in chunk]),
+                                 np.stack([cached(c) for _, c in chunk]))[:n])
+        counts = torch.cat(outs).cpu().numpy().astype(np.int64).reshape(Q, b)
+        return rerank_by_inliers(ranks, counts, b)
+
+    counts = np.zeros((Q, b), np.int64)
+    for i, (q, c) in enumerate(pairs):
+        counts.flat[i] = int(match_fn(load(q), load(c)).num_matches)
     return rerank_by_inliers(ranks, counts, b)

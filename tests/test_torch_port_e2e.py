@@ -32,9 +32,6 @@ from image_search_engine_for_historical_research_tpu.index.base import (
 from image_search_engine_for_historical_research_tpu.models import extract as j_extract
 from image_search_engine_for_historical_research_tpu.models import init_network as j_init
 from image_search_engine_for_historical_research_tpu_torch.cli import online as t_online
-from image_search_engine_for_historical_research_tpu_torch.cli import (
-    test_reranking as t_test_reranking,
-)
 from image_search_engine_for_historical_research_tpu_torch.data import load_path_features
 from image_search_engine_for_historical_research_tpu_torch.index import build_flat_i8
 from image_search_engine_for_historical_research_tpu_torch.models import from_flax_variables
@@ -176,16 +173,11 @@ def test_unported_matching_methods_exit(services, method):
 
 
 def test_unported_modes_raise(services, tmp_path):
-    """What the port still refuses, at start-up before any data is read:
-    the LoFTR re-ranker of ``cli.test_reranking``, also beside ported
-    methods; and a sharded diffusion build. ``--coalesce`` and
-    ``rerank="diffusion"`` are served (``tests/test_torch_port_serving.py``),
-    ``--methods sift`` re-ranks (``tests/test_torch_port_geometric.py``)."""
+    """What the port still refuses: a sharded diffusion build (multi-GPU).
+    ``--coalesce`` and ``rerank="diffusion"`` are served
+    (``tests/test_torch_port_serving.py``); ``--methods sift`` and ``loftr``
+    re-rank, also beside other methods
+    (``tests/test_torch_port_geometric.py``)."""
     _, tsvc, _, _ = services
-    for methods in ("loftr", "qge,loftr", "sift,loftr"):
-        argv = ["--dataset", "roxford5k", "--data-root", str(tmp_path / "missing"),
-                "--methods", methods, "--device", "cpu"]
-        with pytest.raises(SystemExit, match="local-feature re-rankers"):
-            t_test_reranking.main(argv)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         build_diffusion_offline(torch.as_tensor(tsvc.vecs), n_trunc=8, kd=4, mesh=object())

@@ -267,9 +267,8 @@ def test_unnormalize_and_rank_montage_match_jax(scenes, tmp_path):
 def test_cli_sift_map_matches_jax(scenes, monkeypatch, capsys):
     """``--methods sift`` (the device backend under JAX's name ``tpu``, and
     a feature store) gives the JAX CLI's baseline and re-ranked mAP, and
-    lifts it; ``loftr`` still exits at start-up. (JAX's CLI is imported here:
-    it needs flax, which the card's machine lacks, and the file's ``cuda``
-    case must collect there.)"""
+    lifts it. (JAX's CLI is imported here: it needs flax, which the card's
+    machine lacks, and the file's ``cuda`` case must collect there.)"""
     from image_search_engine_for_historical_research_tpu.cli import test_reranking as j_cli
 
     root, _, _, _ = scenes
@@ -291,8 +290,75 @@ def test_cli_sift_map_matches_jax(scenes, monkeypatch, capsys):
             assert getattr(res, key) == getattr(ref, key), key
     assert out["sift"].mapM > out["baseline"].mapM
     assert "after sift:" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="LoFTR"):
-        t_cli.main(argv[:4] + ["--methods", "sift,loftr", "--device", "cpu"])
+
+
+LOFTR_SMALL = dict(initial_dim=32, block_dims=(32, 48, 64), d_coarse=64, d_fine=32, nhead=4,
+                   coarse_layers=("self", "cross") * 2, thr=0.0, max_matches=64)
+
+
+def _small_loftr(monkeypatch):
+    """Both CLIs at JAX's LoFTR test config and 96 x 64 px (their own
+    settings are the default config at 640 x 480). Without ``--loftr-ckpt``
+    JAX's CLI gets the port's seeded weights, so the two rank alike."""
+    from image_search_engine_for_historical_research_tpu.models import loftr as j_loftr
+    from image_search_engine_for_historical_research_tpu_torch.models import loftr as t_loftr
+
+    jcfg, tcfg = j_loftr.LoFTRConfig(**LOFTR_SMALL), t_loftr.LoFTRConfig(**LOFTR_SMALL)
+    monkeypatch.setattr(j_loftr, "LoFTRConfig", lambda **kw: jcfg)
+    monkeypatch.setattr(t_loftr, "LoFTRConfig", lambda **kw: tcfg)
+    load = j_loftr.load_loftr_checkpoint
+    monkeypatch.setattr(j_loftr, "load_loftr_checkpoint", lambda p: load(p, jcfg))
+    monkeypatch.setattr(j_loftr, "init_matcher", lambda shape: (
+        j_loftr.LoFTRMatcher(jcfg),
+        j_loftr.convert_loftr_state_dict(t_loftr.init_matcher(device="cpu").state_dict(),
+                                         jcfg)))
+    for mod in (j_rerank, t_rerank):
+        fn = mod.loftr_rerank
+
+        def small(*a, _fn=fn, **kw):
+            kw["resolution"] = (96, 64)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, "loftr_rerank", small)
+
+
+@pytest.mark.parametrize("methods,ckpt", [("loftr", True), ("aqe,loftr", False),
+                                          ("sift,loftr", True)])
+def test_cli_loftr_matches_jax(scenes, monkeypatch, capsys, tmp_path, methods, ckpt):
+    """``--methods loftr`` beside other methods (``aqe`` for ``qge``, whose
+    alphaQE takes 10 neighbours from this 4-image gallery in neither
+    package), with a released-layout ``--loftr-ckpt`` written here or with
+    seeded random weights and the warning: every method's ranks equal the
+    JAX CLI's, and ``loftr`` moves some."""
+    from image_search_engine_for_historical_research_tpu.cli import test_reranking as j_cli
+    from image_search_engine_for_historical_research_tpu_torch.models import loftr as t_loftr
+
+    root, _, _, _ = scenes
+    _small_loftr(monkeypatch)
+    if "sift" in methods:
+        for mod in (j_rerank, t_rerank):
+            monkeypatch.setattr(mod, "sift_rerank", functools.partial(mod.sift_rerank,
+                                                                      resize=RESIZE))
+    argv = ["--dataset", "roxford5k", "--data-root", str(root / "rdata"),
+            "--outputs", str(root / "rout"), "--methods", methods]
+    if ckpt:
+        path = str(tmp_path / "outdoor_ds.ckpt")
+        sd = t_loftr.init_matcher(seed=3, device="cpu").state_dict()
+        torch.save({"state_dict": {"matcher." + k: v for k, v in sd.items()}}, path)
+        argv += ["--loftr-ckpt", path]
+    seen = {"t": [], "j": []}
+    for key, mod in (("t", t_cli), ("j", j_cli)):
+        fn = mod.compute_map_revisited
+        monkeypatch.setattr(mod, "compute_map_revisited", lambda r, *a, _fn=fn, _k=key, **kw: (
+            seen[_k].append(np.asarray(r).copy()) or _fn(r, *a, **kw)))
+    out = t_cli.run(t_cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+    assert j_cli.main(argv) == 0
+    assert list(out) == ["baseline"] + methods.split(",")
+    assert len(seen["t"]) == len(seen["j"]) == len(out)
+    for t, j in zip(seen["t"], seen["j"]):
+        np.testing.assert_array_equal(t, j)
+    assert not np.array_equal(seen["t"][0], seen["t"][-1])
+    assert ("warning: no --loftr-ckpt" in capsys.readouterr().out) == (not ckpt)
 
 
 def test_cv2_backend_without_opencv_fails_at_start_up(tmp_path, monkeypatch):

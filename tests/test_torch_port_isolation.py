@@ -47,6 +47,17 @@ img = np.random.default_rng(3).uniform(0, 1, (1, 64, 80)).astype(np.float32)
 f = sift_extract_batch(img, max_kpts=32, n_octaves=2, device="cpu")[0]
 lf = LocalFeatures(f["xy"], 2 * f["scale"], f["angle"], f["desc"], f["count"], (64, 80))
 assert count([lf], [lf], device="cpu").shape == (1,)
+from {PKG}.models import d2net, loftr
+from {PKG}.rerank import loftr_rerank
+from {PKG}.train import init_loftr_train_state, make_loftr_optimizer, make_loftr_train_step
+m = loftr.init_matcher(device="cpu", initial_dim=16, block_dims=(16, 24, 32), d_coarse=32,
+                       d_fine=16, nhead=4, coarse_layers=("self", "cross"))
+pair = np.random.default_rng(4).uniform(0, 1, (1, 32, 48, 1)).astype(np.float32)
+assert loftr.make_batched_count_fn(m)(pair, pair).shape == (1,)
+state = init_loftr_train_state(m, *make_loftr_optimizer(m))
+make_loftr_train_step()(state, torch.from_numpy(pair), torch.eye(3)[None])
+k, s, d = d2net.process_multiscale(np.ones((32, 32, 3), np.float32), d2net.init_d2net(device="cpu"))
+assert d.shape[1] == 512
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "{JAX_PKG}"]
 assert not bad, bad
@@ -122,7 +133,16 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         adalam_count_pairs,
     )
 
+    from image_search_engine_for_historical_research_tpu_torch.models import d2net, loftr
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = tmp_path / "ckpt.pth"
+    torch.save({}, ckpt)
+    for entry in (loftr.init_matcher, lambda: loftr.load_loftr_checkpoint(str(ckpt)),
+                  d2net.init_d2net, d2net.init_dense_net,
+                  lambda: d2net.load_d2net_checkpoint(str(ckpt))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     for entry in (lambda: sift_extract_batch(np.zeros((1, 32, 32), np.float32)), AdalamFilter,
                   make_verifier, make_adalam_verifier,
                   lambda: adalam_count_pairs([None], [None]),

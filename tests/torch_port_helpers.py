@@ -46,6 +46,29 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@contextlib.contextmanager
+def jax_bf16_dots():
+    """Let the JAX package's bf16 paths run on the CPU: their einsums take
+    bf16 operands with ``preferred_element_type=float32``, which XLA's CPU
+    runtime refuses ("BF16 x BF16 = F32"). Inside the context such an
+    einsum casts its bf16 operands to f32 first; a product of two bf16
+    values is exact in f32, so it is the same sum, accumulated in f32, that
+    an accelerator computes. Trace the JAX functions inside the context."""
+    import jax.numpy as jnp
+
+    einsum = jnp.einsum
+
+    def f32_einsum(subscripts, *operands, preferred_element_type=None, **kw):
+        if preferred_element_type is not None:
+            operands = [jnp.asarray(o).astype(preferred_element_type)
+                        if jnp.asarray(o).dtype == jnp.bfloat16 else o for o in operands]
+        return einsum(subscripts, *operands, preferred_element_type=preferred_element_type, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnp, "einsum", f32_einsum)
+        yield
+
+
 def perturbed_variables(variables, seed: int = 0):
     """Numpy copy of a Flax variable tree with every parameter and BN
     statistic moved by seeded noise: without it the SOA ``v`` conv is zero,
