@@ -171,10 +171,27 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    run in child processes beside the card's work. (The PQ graph walks'
    route records are timed over 2 + 3 calls, a depth cut for the time
    limit.)
+11. Multi-GPU builds (``parallel``, ``mesh=``), in an NCCL world of one
+   started in this process by ``data_mesh()`` (its start and first
+   all-reduce timed) and destroyed after: the PQ determinism phase's second
+   ``build_pq`` and ``build_ivfpq`` and its streamed ``build_pq`` run
+   sharded; then ``parallel_phase``: ``sharded_exact_topk`` of 70 queries
+   over the 1M rows against ``FlatIndex``'s top-100, ``build_hnsw_device``
+   on 65,536 rows (both graphs searched by the kernel),
+   ``build_diffusion_offline(n_trunc=2000, kd=50)`` on 16,384 rows,
+   ``build_rpforest(n_trees=100, leaf_size=512)`` and
+   ``kmeans_fit_sharded`` on 65,536 rows. In a world of one the sharded
+   code does the unsharded arithmetic in the same order, so every array is
+   held identical; each build's seconds (unsharded, then sharded) and the
+   peak memory go into a ``{"parallel": {...}}`` line. (One card cannot hold an
+   NCCL world of two: collectives across cards are checked only by the
+   CPU tests' gloo world of two.)
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
 before it (``ms``), and the same with a spin kernel queued ahead of the first
-event, so the host's launch gaps are hidden (``device_ms``).
+event, so the host's launch gaps are hidden (``device_ms``). The plain
+version's ``plain_ms`` is the median of 3 calls at the served shapes and
+one call (after a warm-up) at 1M and above, a cut for the time limit.
 
 Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
 run: the HNSW and diffusion services, the coalesced batches and the SAHA
@@ -184,8 +201,9 @@ and LoFTR runs' HNSW matchers), a
 {...}}`` line with the remaining matchers' numbers, a ``{"slice7": {...}}``
 line with the extraction and training numbers, a ``{"saha": {...}}`` line
 with the SAHA phase's, a ``{"slice10": {...}}`` line with the LoFTR and
-D2-Net phases', then the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
-{...}}``. Any failed check raises,
+D2-Net phases', a ``{"parallel": {...}}`` line with the sharded builds',
+then the ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+"device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
 CUDA device.
 """
@@ -204,6 +222,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -406,7 +425,7 @@ def kernel_phase(bs, cases, dev, flush):
     starts = torch.randint(0, N_BIG, (Q_BIG,), generator=g, device=dev, dtype=torch.int32)
     for dtype in (torch.float32, torch.bfloat16):
         dbt = db.to(dtype).contiguous()
-        rec = measure(bs, dbt, nbr, q, starts, flush, tie=1e-3, plain_reps=3)
+        rec = measure(bs, dbt, nbr, q, starts, flush, tie=1e-3, plain_reps=1)
         out[f"1m_{rec['dtype']}"] = rec
         print("beam_search at 1M:", json.dumps(rec), flush=True)
         if dtype == torch.float32:
@@ -519,7 +538,8 @@ def graph_phase(bs, dev, flush, card):
     check(r_k >= 0.95, f"kernel route recall@10 {r_k} < 0.95")
     check(r_l >= 0.95, f"lockstep route recall@10 {r_l} < 0.95")
 
-    rec = measure(bs, ix.vectors, ix.nbr0, q, coarse_starts(ix, q), flush, tie=1e-3)
+    rec = measure(bs, ix.vectors, ix.nbr0, q, coarse_starts(ix, q), flush, tie=1e-3,
+                  plain_reps=1)
     rec.update(graph="device-built", launches=launches, recall10_kernel=r_k,
                recall10_lockstep=r_l, build_s=build_s,
                fresh_rows_per_hop=rec["fresh_rows_per_query"] / rec["expansions_per_query"])
@@ -1200,15 +1220,18 @@ def pq_1m_phase(vecs, dev, flush, card):
     return out
 
 
-def pq_determinism_phase(vecs, dev, card, rows=65_536):
+def pq_determinism_phase(vecs, dev, card, mesh, rows=65_536):
     """Two card builds from one seed give identical arrays (PQ, IVF-PQ and
     HNSW-PQ with the device graph builder and the node centroid sums), and
     streamed PQ builds equal the in-memory build given the same explicit
     ``train_sample``: normalized rows, OPQ on both levels, refine codes, from
     device bf16 chunks whose size is not on the build grid (host chunks:
-    the ``cuda`` tests). The fits use the 1M phase's Ks=8192 on ``rows``
-    rows: the checks are of identity, which the row count does not change,
-    and the script's time limit needs the cut."""
+    the ``cuda`` tests). The second ``build_pq`` and ``build_ivfpq`` and the
+    streamed ``build_pq`` run sharded over ``mesh`` (an NCCL world of one,
+    which does the unsharded arithmetic in the same order). The fits use
+    the 1M phase's Ks=8192 on ``rows`` rows: the checks are of identity,
+    which the row count does not change, and the script's time limit needs
+    the cut."""
     from image_search_engine_for_historical_research_tpu_torch.index import (
         build_hnsw_pq,
         build_ivfpq,
@@ -1229,10 +1252,11 @@ def pq_determinism_phase(vecs, dev, card, rows=65_536):
     out = {"rows": rows}
     t0 = time.perf_counter()
     same(arrays(build_pq(sub, M=16, Ks=8192, device=dev)),
-         arrays(build_pq(sub, M=16, Ks=8192, device=dev)), "two build_pq from one seed")
+         arrays(build_pq(sub, M=16, Ks=8192, device=dev, mesh=mesh)),
+         "build_pq and build_pq(mesh=) from one seed")
     kw = dict(nlist=316, M=16, Ks=256, nprobe=64, refine_M=32, device=dev)
-    same(arrays(build_ivfpq(sub, **kw)), arrays(build_ivfpq(sub, **kw)),
-         "two build_ivfpq from one seed")
+    same(arrays(build_ivfpq(sub, **kw)), arrays(build_ivfpq(sub, mesh=mesh, **kw)),
+         "build_ivfpq and build_ivfpq(mesh=) from one seed")
     out["pq_ivfpq_twice_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     # one OPQ round and a 65,536-row fit sample: the checks need no more
@@ -1245,13 +1269,140 @@ def pq_determinism_phase(vecs, dev, card, rows=65_536):
     t0 = time.perf_counter()
     kw = dict(M=16, Ks=8192, train_sample=65536, refine_M=32, opq=True, opq_iters=1, device=dev)
     step = 50_000                               # not a multiple of any encode or grid piece
-    stream = build_pq(lambda: (sub[s:s + step] for s in range(0, rows, step)), n=rows, **kw)
+    stream = build_pq(lambda: (sub[s:s + step] for s in range(0, rows, step)), n=rows,
+                      mesh=mesh, **kw)
     same(arrays(build_pq(sub, **kw)), arrays(stream),
-         f"streaming build_pq from {step}-row device chunks vs in memory")
+         f"streaming build_pq(mesh=) from {step}-row device chunks vs in memory")
     out["streaming_s"] = time.perf_counter() - t0
     out["identical"] = True
     print(f"PQ determinism and streaming at {rows} rows: identical arrays {json.dumps(out)} "
           f"({card})", flush=True)
+    return out
+
+
+def start_mesh():
+    """``data_mesh()`` with no process group running: an NCCL world of one
+    in this process, on cuda:0. Returns the mesh and the seconds to start
+    it and to finish a first all-reduce (NCCL builds its communicator
+    there)."""
+    from image_search_engine_for_historical_research_tpu_torch.parallel import data_mesh
+
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    mesh = data_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"data_mesh() started {dist.get_backend()} with {dist.get_world_size()} ranks")
+    init_s = time.perf_counter() - t0
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    check(float(one) == 1.0, f"a world of one summed 1 to {float(one)}")
+    return mesh, {"backend": "nccl", "world": 1, "init_s": init_s,
+                  "first_all_reduce_s": time.perf_counter() - t0 - init_s}
+
+
+def parallel_phase(bs, vecs, mesh, dev, flush, card, rows=65_536, diff_rows=16_384):
+    """The sharded builds over ``mesh`` (an NCCL world of one) against the
+    unsharded ones on the same card: in a world of one the sharded code does
+    the same arithmetic in the same order, so every array must be identical.
+    ``sharded_exact_topk`` of 70 queries over the 1M rows against
+    ``FlatIndex``'s top-100; ``build_hnsw_device`` (m=16, k_candidates=64)
+    on ``rows`` rows, both graphs searched by the beam kernel through
+    ``HNSWIndex.search``; ``build_diffusion_offline(n_trunc=2000, kd=50)``
+    (tables solver) on ``diff_rows`` rows; ``build_rpforest(n_trees=100,
+    leaf_size=512)`` and ``kmeans_fit_sharded`` (k=256) on ``rows`` rows.
+    Each build's seconds (host clock, synchronized) unsharded then
+    sharded, and the phase's peak memory."""
+    from image_search_engine_for_historical_research_tpu_torch.index import (
+        FlatIndex,
+        build_hnsw_device,
+        build_rpforest,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.index.base import normalize_rows
+    from image_search_engine_for_historical_research_tpu_torch.ops.kmeans import (
+        kmeans_fit,
+        kmeans_fit_sharded,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.parallel import sharded_exact_topk
+    from image_search_engine_for_historical_research_tpu_torch.rerank import (
+        build_diffusion_offline,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rows": rows, "diffusion_rows": diff_rows}
+
+    def both(label, build):
+        """``build(None)`` then ``build(mesh)``, each timed once (the
+        script's time limit allows no more); both results."""
+        res = []
+        for m in (None, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.append(build(m))
+            torch.cuda.synchronize()
+            out[f"{label}_{'sharded' if m is not None else 'unsharded'}_s"] = (
+                time.perf_counter() - t0)
+        return res
+
+    def same(a, b, label):
+        check(set(a) == set(b), f"{label}: array names differ")
+        for k in a:
+            check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                  f"{label}: array {k} differs from the unsharded build's")
+
+    def identical(a, b, label):
+        check(a.dtype == b.dtype and torch.equal(a, b), f"{label} differs from the unsharded")
+
+    q = vecs[:Q_BIG].float()
+    flat = FlatIndex(vectors=vecs, storage_dtype="bfloat16")
+    s_ref, i_ref = flat.search(q, 100)
+    qn = normalize_rows(q)
+    s, i = sharded_exact_topk(qn, vecs, 100, mesh, matmul_dtype=torch.bfloat16)
+    identical(s, s_ref, "sharded_exact_topk scores")
+    identical(i, i_ref, "sharded_exact_topk ids")
+    out["topk_1m_flat_ms"] = time_ms(lambda: flat.search(q, 100), 5, flush)
+    out["topk_1m_sharded_ms"] = time_ms(
+        lambda: sharded_exact_topk(normalize_rows(q), vecs, 100, mesh,
+                                   matmul_dtype=torch.bfloat16), 5, flush)
+
+    sub = vecs[:rows]
+    ix, ix_m = both("hnsw", lambda m: build_hnsw_device(sub, m=16, k_candidates=64,
+                                                         normalize=False, device=dev, mesh=m))
+    for name in ("nbr0", "nbru", "coarse_ids"):
+        identical(getattr(ix_m, name), getattr(ix, name), f"build_hnsw_device(mesh=) {name}")
+    check(ix_m.entry == ix.entry, "build_hnsw_device(mesh=) entry differs")
+    qs = sub[:Q_BIG].float()
+    bs.launches = 0
+    _, ids = ix.search(qs, 10, ef=EF)
+    _, ids_m = ix_m.search(qs, 10, ef=EF)
+    torch.cuda.synchronize()
+    check(bs.launches == 2, f"the two graph searches launched the kernel {bs.launches} times")
+    identical(ids_m, ids, "the beam kernel's ids on the build_hnsw_device(mesh=) graph")
+    del ix, ix_m
+
+    dsub = vecs[:diff_rows]
+    off, off_m = both("diffusion", lambda m: build_diffusion_offline(
+        dsub, n_trunc=2000, kd=50, solver="tables", mesh=m))
+    identical(off_m.trunc_ids, off.trunc_ids, "build_diffusion_offline(mesh=) trunc_ids")
+    identical(off_m.scores, off.scores, "build_diffusion_offline(mesh=) scores")
+    del off, off_m
+
+    fo, fo_m = both("rpforest", lambda m: build_rpforest(sub, n_trees=100, leaf_size=512,
+                                                          device=dev, mesh=m))
+    same(fo.to_arrays()[1], fo_m.to_arrays()[1], "build_rpforest(mesh=)")
+    del fo, fo_m
+
+    x = sub.float()
+    (c, a), (c_m, a_m) = both("kmeans", lambda m: kmeans_fit(x, 256, seed=0) if m is None
+                              else kmeans_fit_sharded(x, 256, m, seed=0))
+    identical(c_m, c, "kmeans_fit_sharded centres")
+    identical(a_m, a, "kmeans_fit_sharded assignments")
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["identical"] = True
+    print(f"parallel builds over an NCCL world of one, identical to the unsharded: "
+          f"{json.dumps(out)} ({card})", flush=True)
     return out
 
 
@@ -1287,6 +1438,7 @@ def pq_serving_phase(offline, online, common, argv, paths, dev, card):
     out = {}
     fit_s = []
     opq_train = index_pq.opq_train
+    cpu_desc = []     # the CPU descriptor of paths[0]: every method's CPU service has the same model
 
     def timed_opq_train(*a, **kw):
         torch.cuda.synchronize()
@@ -1337,8 +1489,10 @@ def pq_serving_phase(offline, online, common, argv, paths, dev, card):
         # the CPU's served list, ids free only at tied served scores
         sg, ig = svc.index.search(torch.as_tensor(extract_vectors_single(
             svc.model, paths[0], svc.image_size, scales=svc.scales))[None], svc.K)
-        sc, ic = cpu.index.search(torch.as_tensor(extract_vectors_single(
-            cpu.model, paths[0], cpu.image_size, scales=cpu.scales))[None], cpu.K)
+        if not cpu_desc:
+            cpu_desc.append(torch.as_tensor(extract_vectors_single(
+                cpu.model, paths[0], cpu.image_size, scales=cpu.scales))[None])
+        sc, ic = cpu.index.search(cpu_desc[0], cpu.K)
         moved, gap = compare_scored(sc, ic, sg, ig, 1e-5, f"{method}: served search, CPU vs card")
         s_card, i_card = served_scored(svc, ig)
         s_cpu, i_cpu = served_scored(cpu, ic)
@@ -1865,7 +2019,8 @@ def large_n_phase(bs, dev, flush, card):
     check(torch.equal(i_k[:, :10], i4), f"N={n}: HNSWIndex.search differs from its kernel call")
     out = {"n": n, "plans": plans, "search_s_q4": search_s}
     for label, N in (("device_bitset", n), ("shared_bitset", limit)):
-        rec = measure(bs, vecs[:N], nbr0[:N], q, starts, flush, tie=1e-3, reps=10)
+        rec = measure(bs, vecs[:N], nbr0[:N], q, starts, flush, tie=1e-3, reps=10,
+                      plain_reps=1)
         out[label] = rec
         print(f"beam_search at N={N} ({label}): {json.dumps(rec)} ({card})", flush=True)
     del vecs, nbr0, nbru, big
@@ -3237,7 +3392,16 @@ def main():
     # the same rows, determinism and streaming
     opq_fit = timed("opq_fit", opq_fit_phase, card)
     pq_rec = timed("pq_1m", pq_1m_phase, big, dev, flush, card)
-    pq_rec["determinism"] = timed("pq_determinism", pq_determinism_phase, big, dev, card)
+
+    # slice 11: an NCCL world of one in this process; the PQ determinism
+    # phase's second builds and the parallel phase's sharded builds run over it
+    mesh, par_rec = start_mesh()
+    try:
+        pq_rec["determinism"] = timed("pq_determinism", pq_determinism_phase, big, dev, card,
+                                      mesh)
+        par_rec.update(timed("parallel", parallel_phase, bs, big, mesh, dev, flush, card))
+    finally:
+        torch.distributed.destroy_process_group()
 
     # the remaining matchers on the same rows, then HNSW above the kernel's N limit
     match_rec = timed("matchers_1m", matchers_1m_phase, big, dev, flush, card)
@@ -3451,6 +3615,7 @@ def main():
     print(json.dumps({"slice7": slice7}))
     print(json.dumps({"saha": saha}))
     print(json.dumps({"slice10": slice10}))
+    print(json.dumps({"parallel": par_rec}))
     print(json.dumps({"phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -20,6 +20,10 @@ package, which stays the reference), written for one NVIDIA H100:
                   feature store (whole and sharded), synthetic datasets.
 - ``native``   -- build of the C++ HNSW graph construction, of the JPEG loader
                   and of the CUDA kernels.
+- ``parallel`` -- multi-GPU builds over ``torch.distributed`` (NCCL on the
+                  card, gloo on the CPU): ``data_mesh``, ``shard_batch``,
+                  ``replicate`` and the database-sharded ``sharded_exact_topk``
+                  behind the builders' ``mesh=``.
 - ``utils``    -- timers, device traces, the metrics log.
 
 Conventions are the JAX package's at every public function: NHWC images,

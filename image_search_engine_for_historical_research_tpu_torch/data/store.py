@@ -5,13 +5,15 @@ The port's own copy of
 :82-190): ``<root>/features/<dataset>_path_feature.npz`` holding ``paths`` and
 row-major f32 ``features``, and the sharded store
 ``<root>/features/<dataset>_shards/shard_<start:012d>_<count:08d>.npz`` with
-the same keys, so both packages read each other's stores. The reference's
-legacy pickle stores are not ported.
+the same keys, so both packages read each other's stores. Where only the
+reference's pickle store ``<dataset>_path_feature.pkl`` (``path`` and a D x N
+``feature`` array) exists, ``load_path_features`` reads that instead.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import re
 import warnings
 from typing import Callable, List, Sequence, Tuple
@@ -48,12 +50,23 @@ def save_path_feature(
 
 
 def load_path_features(dataset: str, root: str = "outputs") -> Tuple[np.ndarray, List[str]]:
-    """Load ``(features (N, D), paths)``."""
+    """Load ``(features (N, D), paths)``. Falls back to the reference's
+    pickle store when only that file exists, transposing its D x N layout
+    (told by the path count) and returning f32."""
     path = feature_path(root, dataset)
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no feature store for {dataset!r} under {root}")
-    z = np.load(path, allow_pickle=False)
-    return z["features"], [str(p) for p in z["paths"]]
+    if os.path.exists(path):
+        z = np.load(path, allow_pickle=False)
+        return z["features"], [str(p) for p in z["paths"]]
+    legacy = os.path.join(root, "features", f"{_safe_name(dataset)}_path_feature.pkl")
+    if os.path.exists(legacy):
+        with open(legacy, "rb") as f:
+            d = pickle.load(f)
+        vecs = np.asarray(d["feature"])
+        paths = list(d["path"])
+        if vecs.ndim == 2 and vecs.shape[0] != len(paths) and vecs.shape[1] == len(paths):
+            vecs = vecs.T
+        return vecs.astype(np.float32), paths
+    raise FileNotFoundError(f"no feature store for {dataset!r} under {root}")
 
 
 # ---------------------------------------------------------------------------

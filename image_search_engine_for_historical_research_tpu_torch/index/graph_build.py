@@ -19,10 +19,13 @@ which is what makes a 1M-image HNSW gallery buildable:
    table.
 
 The candidate pass is always exact (the JAX ``approximate=True`` is the
-TPU's fused ``approx_max_k``; on the CPU JAX computes exact top-k too), and
-the ``mesh=`` sharded build is not ported yet. Prune chunks are bounded by a
-1 GiB candidate-gather budget and a numpy source is uploaded in chunks, so a
-1M x 2048 build stays within the card's memory.
+TPU's fused ``approx_max_k``; on the CPU JAX computes exact top-k too).
+With ``mesh=`` (a ``parallel.data_mesh``) each batch's candidate scan is
+``parallel.sharded_exact_topk`` over the gallery's rows sharded across the
+ranks; pruning and levels are unchanged, so every rank builds the graph the
+unsharded build gives (up to the order of exactly tied scores). Prune chunks
+are bounded by a 1 GiB candidate-gather budget and a numpy source is
+uploaded in chunks, so a 1M x 2048 build stays within the card's memory.
 """
 
 from __future__ import annotations
@@ -139,14 +142,27 @@ def _drop_self_chunk(sc, ix, row0: int):
 
 
 def build_knn_graph(vectors: torch.Tensor, k: int = 64, batch: int = 4096,
-                    matmul_dtype=torch.bfloat16):
+                    matmul_dtype=torch.bfloat16, mesh=None):
     """Exact kNN graph ``(ids (N, k) int32, scores (N, k) f32)``, self
-    excluded, from batched scans on ``vectors``' device (:163-222)."""
+    excluded, from batched scans on ``vectors``' device (:163-222). With
+    ``mesh``, each batch is scanned by ``parallel.sharded_exact_topk`` over
+    the rows sharded across the ranks (N must divide the mesh)."""
     N = vectors.shape[0]
     k_eff = min(k + 1, N)
+    if mesh is not None:
+        from ..parallel import sharded_exact_topk
+        from ..parallel.mesh import full_rows
+
+        vectors = full_rows(vectors)
+
+        def scan(q):
+            return sharded_exact_topk(q, vectors, k_eff, mesh, matmul_dtype=matmul_dtype)
+    else:
+        def scan(q):
+            return exact_topk(q, vectors, k_eff, matmul_dtype=matmul_dtype)
     id_chunks, sc_chunks = [], []
     for s in range(0, N, batch):
-        sc, ix = exact_topk(vectors[s:s + batch], vectors, k_eff, matmul_dtype=matmul_dtype)
+        sc, ix = scan(vectors[s:s + batch])
         sc, ix = _drop_self_chunk(sc, ix, s)
         sc_chunks.append(sc)
         id_chunks.append(ix.to(torch.int32))
@@ -163,11 +179,13 @@ def build_hnsw_graph_device(
     batch: int = 8192,
     alpha: float = 1.2,
     verbose: bool = False,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
     """Full graph build on ``vectors``' device; returns ``(nbr0, nbru,
     levels, entry, top_level)`` as host arrays in the native builder's
     format. Port of ``build_hnsw_graph_tpu`` (:225-405). ``verbose`` prints
-    each stage's seconds (host clock after a device synchronize)."""
+    each stage's seconds (host clock after a device synchronize). ``mesh``
+    shards the kNN candidate pass (``build_knn_graph``)."""
     N, D = vectors.shape
     dev = vectors.device
     m0 = m0 or 2 * m
@@ -183,7 +201,7 @@ def build_hnsw_graph_device(
             print(f"[graph_build] {stage}: {t1 - t0:.3f} s", flush=True)
             t0 = t1
 
-    cand_ids, cand_scores = build_knn_graph(vectors, k_candidates, batch)
+    cand_ids, cand_scores = build_knn_graph(vectors, k_candidates, batch, mesh=mesh)
     _tick("kNN candidate pass")
 
     # the prune stages gather (B, W, D) candidate rows per chunk: their batch
@@ -357,9 +375,11 @@ def build_hnsw_device(
     alpha: float = 1.2,
     verbose: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Build an ``HNSWIndex`` on ``device`` with the device graph builder.
-    Port of ``build_hnsw_tpu`` (:489-557).
+    Port of ``build_hnsw_tpu`` (:489-557). ``mesh`` (a ``parallel.data_mesh``
+    on ``device``'s type; N must divide it) shards the kNN candidate pass.
 
     Vectors are stored bf16 (half the bytes of a scan; bf16 distances only
     reorder near-ties). A numpy source stays on the host and is uploaded,
@@ -368,6 +388,14 @@ def build_hnsw_device(
     from .hnsw import HNSWIndex
 
     dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.mesh import full_rows, mesh_size
+
+        mesh_size(mesh)                                  # TypeError for a non-mesh
+        if mesh.device_type != dev.type:
+            raise ValueError(f"build_hnsw_device(device={str(dev)!r}) with a "
+                             f"{mesh.device_type!r} mesh")
+        vecs = full_rows(vecs)
     host_src = not torch.is_tensor(vecs)
     N, D = vecs.shape
     chunk = 65536
@@ -387,7 +415,7 @@ def build_hnsw_device(
         v = v.to(torch.bfloat16)
     nbr0, nbru, levels, entry, _ = build_hnsw_graph_device(
         v, m=m, m0=m0, k_candidates=k_candidates, seed=seed, batch=batch, alpha=alpha,
-        verbose=verbose,
+        verbose=verbose, mesh=mesh,
     )
     coarse = np.where(levels >= 1)[0].astype(np.int32)
     return HNSWIndex(

@@ -1,7 +1,7 @@
 """IVF-PQ index: coarse quantizer + residual PQ codes in flat inverted lists.
 
 Port of ``image_search_engine_for_historical_research_tpu/index/ivfpq.py``
-(:43-506) without ``mesh=``: ``_ivfpq_search``, ``_ivfpq_rerank_refine``,
+(:43-506): ``_ivfpq_search``, ``_ivfpq_rerank_refine``,
 ``IVFPQIndex`` and ``build_ivfpq``. FAISS ``IndexIVFPQ`` semantics: codes
 are PQ codes of the residual ``x - coarse_center(x)``; a query probes its
 ``nprobe`` nearest lists. The lists are stored flat and sorted by list id
@@ -20,6 +20,10 @@ gives the codes-only ``adc+refine`` re-rank (faiss ``IndexIVFPQR``).
 - **Random draws.** The training sample (``_train_sample``) and the coarse
   fit (``_coarse_fit``) are the two places a build draws its randomness,
   from host generators seeded by ``seed``.
+- **Sharded build.** ``mesh=`` (a ``parallel.data_mesh``) rounds the
+  sample down to a multiple of the world size and shards the rows of the
+  coarse, PQ (or OPQ) and refine fits over the ranks, each of which builds
+  the same index.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.kmeans import _host_generator, kmeans_fit
+from ..ops.kmeans import _host_generator, kmeans_fit, kmeans_fit_sharded
 from ..ops.pq import (
     PQCodebook,
     adc,
@@ -226,10 +230,13 @@ def _train_sample(N: int, n_train: int, seed: int) -> np.ndarray:
     return torch.randperm(N, generator=_host_generator(seed))[:n_train].numpy()
 
 
-def _coarse_fit(sample: torch.Tensor, nlist: int, iters: int, seed: int) -> torch.Tensor:
-    """The coarse quantizer: ``nlist`` k-means centres of the sample."""
-    centers, _ = kmeans_fit(sample, nlist, iters, seed=seed)
-    return centers
+def _coarse_fit(sample: torch.Tensor, nlist: int, iters: int, seed: int,
+                mesh=None) -> torch.Tensor:
+    """The coarse quantizer: ``nlist`` k-means centres of the sample, its
+    rows sharded over ``mesh`` when one is given."""
+    if mesh is not None:
+        return kmeans_fit_sharded(sample, nlist, mesh, iters, seed=seed)[0]
+    return kmeans_fit(sample, nlist, iters, seed=seed)[0]
 
 
 def build_ivfpq(
@@ -251,6 +258,7 @@ def build_ivfpq(
     n: Optional[int] = None,
     device="cuda",
     stats: Optional[dict] = None,
+    mesh=None,
 ) -> IVFPQIndex:
     """Train the coarse and residual-PQ quantizers on a ``train_fraction``
     sample and pack flat inverted lists, on ``device`` (FAISS defaults:
@@ -263,9 +271,16 @@ def build_ivfpq(
     chunks with the total row count as ``n=``; the sample is gathered chunk
     by chunk in draw order (so the fits equal the in-memory ones) and the
     encode pass streams the chunks again. ``stats``, when a dict, receives
-    each stage's seconds, ``seg`` and the number of (virtual) lists."""
+    each stage's seconds, ``seg`` and the number of (virtual) lists.
+    ``mesh`` (a ``parallel.data_mesh``) rounds ``n_train`` down to a
+    multiple of the world size and shards every fit's rows."""
     dev = resolve_device(device)
     clock = StageClock(stats, dev)
+    world = 1
+    if mesh is not None:
+        from ..parallel.mesh import full_rows, mesh_size
+
+        vecs, world = full_rows(vecs), mesh_size(mesh)
     streaming = callable(vecs)
     if streaming:
         if n is None:
@@ -276,6 +291,7 @@ def build_ivfpq(
         N = v.shape[0]
 
     n_train = max(min(N, 64), int(N * train_fraction))
+    n_train = max(world, n_train // world * world)     # sharded fits need rows that divide
     sample_idx = _train_sample(N, n_train, seed)
     if streaming:
         sample = stream_gather_rows(vecs, N, sample_idx, normalize=normalize, device=dev)
@@ -284,7 +300,7 @@ def build_ivfpq(
 
     clock.tick("sample_s")
     nlist = min(nlist, N)
-    coarse_centers = _coarse_fit(sample, nlist, iters, seed)
+    coarse_centers = _coarse_fit(sample, nlist, iters, seed, mesh=mesh)
     clock.tick("coarse_fit_s")
 
     # the residual PQ trains on the sample only (faiss semantics)
@@ -292,13 +308,13 @@ def build_ivfpq(
     s_assign = torch.argmin(c2[None, :] - 2.0 * (sample @ coarse_centers.T), dim=1)
     r1 = sample - coarse_centers[s_assign]
     if opq:
-        cb = opq_train(r1, M=M, Ks=Ks, iters=iters, opq_iters=opq_iters, seed=seed)
+        cb = opq_train(r1, M=M, Ks=Ks, iters=iters, opq_iters=opq_iters, seed=seed, mesh=mesh)
     else:
-        cb = pq_train(r1, M=M, Ks=Ks, iters=iters, seed=seed)
+        cb = pq_train(r1, M=M, Ks=Ks, iters=iters, seed=seed, mesh=mesh)
     rcb = None
     if refine_M > 0:
         r2 = r1 - pq_decode(cb, pq_encode(cb, r1))
-        rcb = pq_train(r2, M=refine_M, Ks=refine_Ks, iters=iters, seed=seed + 1)
+        rcb = pq_train(r2, M=refine_M, Ks=refine_Ks, iters=iters, seed=seed + 1, mesh=mesh)
         del r2
     del sample, s_assign, r1
     clock.tick("fit_s")

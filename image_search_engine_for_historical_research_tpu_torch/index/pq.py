@@ -1,9 +1,9 @@
 """PQ index: compressed search by an asymmetric-distance code scan.
 
 Port of ``PQIndex`` and ``build_pq`` in
-``image_search_engine_for_historical_research_tpu/index/pq.py`` (:31-333),
-without ``mesh=``. Codes are ``(N, M)`` in the JAX package's dtype (uint16
-at Ks=2^13), or ``(N, M/2)`` uint8 when ``pack4``; with ``refine_M > 0`` a
+``image_search_engine_for_historical_research_tpu/index/pq.py`` (:31-333).
+Codes are ``(N, M)`` in the JAX package's dtype (uint16 at Ks=2^13), or
+``(N, M/2)`` uint8 when ``pack4``; with ``refine_M > 0`` a
 second PQ over the residuals gives every row ``refine_M`` more bytes and
 ``search`` re-ranks an ADC shortlist from the two-level reconstructions
 (faiss ``IndexPQR``). The artifact (kind ``"pq"``) has the JAX package's
@@ -145,7 +145,7 @@ def _train_refine(residuals, refine_M, refine_Ks, iters, seed, opq, opq_iters):
 
 
 def fit_and_encode(vecs, n, M, Ks, iters, seed, normalize, train_sample, coarse_opq,
-                   refine_opq, opq_iters, refine_M, refine_Ks, dev, clock, who):
+                   refine_opq, opq_iters, refine_M, refine_Ks, dev, clock, who, mesh=None):
     """The codebooks and codes of a PQ build (``build_pq`` and
     ``build_hnsw_pq`` share them): ``(cb, codes (N, M), rcb, refine codes
     (N, refine_M))``, the refine pair None without ``refine_M``.
@@ -157,7 +157,9 @@ def fit_and_encode(vecs, n, M, Ks, iters, seed, normalize, train_sample, coarse_
     largest divisor of D. A streamed source trains on gathered samples (the
     in-memory rule), and either way one pass over the build grid
     (``index.streaming``) encodes both levels, so a streamed build equals an
-    in-memory one bit for bit given the same explicit ``train_sample``."""
+    in-memory one bit for bit given the same explicit ``train_sample``.
+    ``mesh`` shards the coarse fit (``ops.pq.pq_train`` / ``opq_train``);
+    the residual fit runs on each rank alone, as in the JAX package."""
     streaming = callable(vecs)
     if streaming:
         if n is None:
@@ -188,9 +190,10 @@ def fit_and_encode(vecs, n, M, Ks, iters, seed, normalize, train_sample, coarse_
     D = int(fit_rows.shape[1])
     if coarse_opq:
         cb = opq_train(fit_rows, M=M, Ks=Ks, iters=iters, opq_iters=opq_iters, seed=seed,
-                       train_sample=opq_ts)
+                       train_sample=opq_ts, mesh=mesh)
     else:
-        cb = pq_train(fit_rows, M=M, Ks=Ks, iters=iters, seed=seed, train_sample=pq_ts)
+        cb = pq_train(fit_rows, M=M, Ks=Ks, iters=iters, seed=seed, train_sample=pq_ts,
+                      mesh=mesh)
     del fit_rows
     clock.tick("fit_s")
     rcb = None
@@ -235,6 +238,7 @@ def build_pq(
     refine_Ks: int = 256,
     device="cuda",
     stats: Optional[dict] = None,
+    mesh=None,
 ) -> PQIndex:
     """Train the codebooks on the database and encode it, on ``device``.
 
@@ -248,15 +252,20 @@ def build_pq(
     **Streaming build**: ``vecs`` may be a callable yielding ``(c, D)`` row
     chunks (numpy or tensors) with the total row count as ``n=``
     (``fit_and_encode``). ``stats``, when a dict, receives each stage's
-    seconds."""
+    seconds. ``mesh`` (a ``parallel.data_mesh``) shards the coarse fit's
+    rows over the ranks, each of which builds the same index."""
     if pack4 and refine_M:
         raise ValueError("refine_M and pack4 are mutually exclusive")
     if pack4 and Ks > 16:
         raise ValueError("pack4 requires Ks <= 16 (the Quick-ADC geometry)")
     dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.mesh import full_rows
+
+        vecs = full_rows(vecs)
     cb, codes, rcb, rcodes = fit_and_encode(
         vecs, n, M, Ks, iters, seed, normalize, train_sample, opq, opq, opq_iters, refine_M,
-        refine_Ks, dev, StageClock(stats, dev), "build_pq")
+        refine_Ks, dev, StageClock(stats, dev), "build_pq", mesh=mesh)
     if pack4:
         codes = pq_pack4(codes)
     return PQIndex(codewords=cb.codewords, codes=codes, normalized=normalize, packed4=pack4,

@@ -1,7 +1,7 @@
 """Random-projection forest: the ANNOY-class index, built and searched on the card.
 
 Port of ``image_search_engine_for_historical_research_tpu/index/rpforest.py``
-(:36-356) without ``mesh=``: ``_median_split_level``, ``_build_tree``,
+(:36-356): ``_median_split_level``, ``_build_tree``,
 ``_descend``, ``RPForestIndex`` (kind ``rpforest``), ``_rerank_candidates``
 and ``build_rpforest``. Every tree is a balanced tree of median splits, so
 its structure is implicit (all leaves at one depth) and a level is a fixed
@@ -23,6 +23,13 @@ The random draws are host generators' behind one seam, ``_level_draws``
 the tests route through JAX's keys. Planes are stored in bf16 and persisted
 as a uint16 bit-cast (``planes_bf16``); legacy f32 ``planes`` load too.
 Every top-k is ``ops.topk._top_exact`` (``lax.top_k``'s ties).
+
+``build_rpforest(mesh=)`` shards the trees over a ``parallel.data_mesh`` in
+contiguous blocks (the count padded to a multiple of the world size with
+copies of tree 0, as JAX pads its keys): each rank builds its own trees from
+the same per-tree draws, so no collective runs until one all-gather of the
+f32 planes, the thresholds and the leaf assignments, and every rank's forest
+equals the unsharded one.
 """
 
 from __future__ import annotations
@@ -231,15 +238,46 @@ class RPForestIndex:
         )
 
 
+def _build_trees(v, depth: int, seed: int, n_trees: int, trees, plane_dtype):
+    """``_build_tree`` of each tree index in ``trees``: lists of planes (in
+    ``plane_dtype``), thresholds and leaf ids."""
+    planes_l, thr_l, assign_l = [], [], []
+    for t in trees:
+        planes, thr, leaf_assign = _build_tree(v, depth, seed, n_trees, t)
+        planes_l.append(planes.to(plane_dtype))
+        thr_l.append(thr)
+        assign_l.append(leaf_assign)
+    return planes_l, thr_l, assign_l
+
+
+def _build_trees_sharded(v, depth: int, seed: int, n_trees: int, mesh):
+    """``_build_trees`` of every tree, built in contiguous blocks over
+    ``mesh``'s ranks and all-gathered with f32 planes, the padding trees
+    (copies of tree 0) dropped; the planes cast to bf16 after the gather."""
+    from ..parallel.mesh import gather_rows, mesh_size
+
+    per = -(-n_trees // mesh_size(mesh))
+    start = mesh.get_local_rank("data") * per
+    mine = [t if t < n_trees else 0 for t in range(start, start + per)]
+    planes, thr, assign = (gather_rows(torch.stack(a), mesh)[:n_trees]
+                           for a in _build_trees(v, depth, seed, n_trees, mine, torch.float32))
+    return list(planes.to(torch.bfloat16)), list(thr), list(assign)
+
+
 def build_rpforest(vecs, n_trees: int = 100, leaf_size: int = 512, seed: int = 42,
                    normalize: bool = True, device="cuda",
-                   stats: Optional[dict] = None) -> RPForestIndex:
+                   stats: Optional[dict] = None, mesh=None) -> RPForestIndex:
     """Build the forest on ``device`` (JAX :257-356; the reference's 100
     trees, and leaf 512, the JAX package's measured recall-vs-memory point).
     Rows are kept in f32, as JAX keeps them; planes are stored in bf16.
-    ``stats``, when given, receives the stage seconds (``trees``, ``leaves``)."""
+    ``stats``, when given, receives the stage seconds (``trees``, ``leaves``).
+    ``mesh`` (a ``parallel.data_mesh``) shards the trees over its ranks."""
     dev = resolve_device(device)
     clock = StageClock(stats, dev)
+    if mesh is not None:
+        from ..parallel.mesh import full_rows
+
+        vecs = full_rows(vecs)
     v = torch.as_tensor(vecs, device=dev).float()
     if normalize:
         v = normalize_rows(v)
@@ -247,14 +285,13 @@ def build_rpforest(vecs, n_trees: int = 100, leaf_size: int = 512, seed: int = 4
     depth = max(1, int(math.ceil(math.log2(max(N / leaf_size, 2)))))
     n_leaves = 1 << depth
 
-    planes_l, thr_l, assign_l = [], [], []
-    for t in range(n_trees):
-        planes, thr, leaf_assign = _build_tree(v, depth, seed, n_trees, t)
-        # bf16 plane storage: a split compares a projection with a threshold,
-        # and bf16 rounding moves only points already on the boundary
-        planes_l.append(planes.to(torch.bfloat16))
-        thr_l.append(thr)
-        assign_l.append(leaf_assign)
+    # bf16 plane storage: a split compares a projection with a threshold,
+    # and bf16 rounding moves only points already on the boundary
+    if mesh is None:
+        planes_l, thr_l, assign_l = _build_trees(v, depth, seed, n_trees, range(n_trees),
+                                                 torch.bfloat16)
+    else:
+        planes_l, thr_l, assign_l = _build_trees_sharded(v, depth, seed, n_trees, mesh)
     clock.tick("trees")
 
     # leaf tables: rows of each leaf in row order, width = the largest leaf

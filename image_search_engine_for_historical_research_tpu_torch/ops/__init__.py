@@ -10,14 +10,20 @@ The beam-search kernel is reached as the module ``ops.beam_search``
 
 from . import beam_search
 from .graph_search import hnsw_descend_entries
+from .int8 import int8_topk, int8_topk_rerank, quantize_rows_int8
+from .losses import contrastive_loss, sos_loss, triplet_loss
 from .normalization import l2n, powerlaw
 from .pooling import gem, mac, rmac, roipool, spoc
 from .sift import sift_extract_batch, sift_program
 from .topk import exact_ranks, exact_scores, exact_topk, streaming_exact_topk
+from .whiten import pcawhitenlearn, whitenapply, whitenlearn
 
 __all__ = [
     "beam_search", "hnsw_descend_entries", "l2n", "powerlaw", "gem", "mac", "spoc",
     "rmac", "roipool",
+    "contrastive_loss", "sos_loss", "triplet_loss",
+    "pcawhitenlearn", "whitenapply", "whitenlearn",
     "exact_ranks", "exact_scores", "exact_topk", "streaming_exact_topk",
+    "int8_topk", "int8_topk_rerank", "quantize_rows_int8",
     "sift_extract_batch", "sift_program",
 ]

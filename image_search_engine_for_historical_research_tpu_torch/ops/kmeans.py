@@ -3,8 +3,8 @@
 Port of ``image_search_engine_for_historical_research_tpu/ops/kmeans.py``
 (:24-163, :266-281): ``_assign_chunk``, ``_kmeanspp_init``,
 ``_init_centers``, ``kmeans_fit`` (the ``ASSIGN_BUDGET`` chunk rule, empty
-clusters keep their centre), ``kmeans_fit_batched`` and ``_assign``. The
-sharded fit (``kmeans_fit_sharded``) is not ported yet.
+clusters keep their centre), ``kmeans_fit_sharded`` (:165-263),
+``kmeans_fit_batched`` and ``_assign``.
 
 Three things differ from the JAX package by design:
 
@@ -32,6 +32,14 @@ Three things differ from the JAX package by design:
   seed give identical centres and a streamed build equals the in-memory
   one. Counts are an integer ``bincount``.
 
+**The sharded fit.** ``kmeans_fit_sharded`` (and ``ops.pq.pq_train(mesh=)``
+through ``fit_sharded``) runs SPMD over a ``parallel.data_mesh``: every rank
+draws the same initial centres from the full rows, assigns and sums its own
+row block, and one ``all_reduce`` of the f32 sums and the int64 counts an
+iteration (for all the batch's fits together) gives every rank the same
+centres. In a world of one it does the unsharded fit's arithmetic in the
+same order.
+
 Assignments are ``argmin(||c||^2 - 2 x.c)`` with the first centre winning a
 tie (``jnp.argmin`` and ``torch.argmin`` agree); ``matmul_dtype=bfloat16``
 multiplies bf16 operands into f32 products (``ops.topk._bmm_f32``), while
@@ -47,6 +55,7 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .topk import _bmm_f32
 
@@ -220,11 +229,13 @@ def segment_sum_rows(out: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -
         out.index_add_(0, idx, rows)
 
 
-def _lloyd(x, centers, iters, chunk, matmul_dtype=None):
+def _lloyd(x, centers, iters, chunk, matmul_dtype=None, group=None):
     """Lloyd iterations of ``M`` fits at once from ``centers (M, k, d)``
     over ``x (M, N, d)``: returns the centres and the ``(M, N)`` int64
     assignments. Each row chunk is one batched GEMM for the assignments and
-    one ``segment_sum_rows`` over ``m * k + assign`` ids for the sums."""
+    one ``segment_sum_rows`` over ``m * k + assign`` ids for the sums. With
+    a process ``group``, ``x`` is this rank's row block and the sums and
+    counts are all-reduced over the group once an iteration."""
     M, N, d = x.shape
     k = centers.shape[1]
     chunk = min(chunk, max(1024, ASSIGN_BUDGET // (M * k)))
@@ -239,6 +250,9 @@ def _lloyd(x, centers, iters, chunk, matmul_dtype=None):
             ids = (_assign_chunk(xcb, centers, c2, matmul_dtype) + off).reshape(-1)
             segment_sum_rows(sums, ids, xcb.float().reshape(-1, d))
             counts += torch.bincount(ids, minlength=M * k)
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+            dist.all_reduce(counts, group=group)
         cnt = counts.float().view(M, k, 1)
         centers = torch.where(cnt > 0, sums.view(M, k, d) / cnt.clamp(min=1.0), centers)
 
@@ -266,6 +280,47 @@ def kmeans_fit(
     centers, assign = _lloyd(x[None], _init_centers(x, k, seed, init)[None], iters, chunk,
                              matmul_dtype)
     return centers[0], assign[0]
+
+
+def fit_sharded(x, k: int, seeds, mesh, iters: int = 20, chunk: int = 131072,
+                matmul_dtype=None, init: str = "kmeans++", axis: str = "data"):
+    """``M`` fits over the full rows ``x (M, N, d)`` (a strided view will
+    do) with their rows sharded over ``mesh``'s ``axis``: fit ``m`` starts
+    from ``_init_centers_batched``'s centres for ``seeds[m]`` over the full
+    rows, then Lloyd runs on this rank's row block with the sums
+    all-reduced. Returns ``(centres (M, k, d), this rank's (M, N / world)
+    assignments)``, the centres equal on every rank. Raises ``ValueError``
+    when N does not divide the mesh."""
+    from ..parallel.mesh import local_rows
+
+    rows, _ = local_rows(x.transpose(0, 1), mesh, axis)      # (N / world, M, d)
+    centers = _init_centers_batched(x, k, seeds, init)
+    return _lloyd(rows.transpose(0, 1), centers, iters, chunk, matmul_dtype,
+                  group=mesh.get_group(axis))
+
+
+def kmeans_fit_sharded(
+    x,
+    k: int,
+    mesh,
+    iters: int = 20,
+    seed: int = 42,
+    chunk: int = 131072,
+    matmul_dtype=None,
+    init: str = "kmeans++",
+    axis: str = "data",
+):
+    """Row-sharded Lloyd k-means over a ``parallel.data_mesh``: returns
+    ``(centers (k, d) f32, assignments (N,) int64)``, both full and equal
+    on every rank. ``x`` is the full ``(N, d)`` rows or a ``shard_batch``
+    result. The initial centres are ``kmeans_fit``'s (drawn from the full
+    rows with ``seed`` on every rank), so sharded and unsharded fits differ
+    only by the order of the all-reduced sums. N must divide the mesh."""
+    from ..parallel.mesh import full_rows, gather_rows
+
+    centers, assign = fit_sharded(full_rows(x)[None], k, [seed], mesh, iters, chunk,
+                                  matmul_dtype, init, axis)
+    return centers[0], gather_rows(assign[0], mesh, axis)
 
 
 def subspace_seed(seed: int, m: int) -> int:

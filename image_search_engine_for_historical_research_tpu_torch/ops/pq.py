@@ -1,8 +1,8 @@
 """Product quantization: codebook training, encoding, asymmetric-distance scan.
 
-Port of ``image_search_engine_for_historical_research_tpu/ops/pq.py`` (all of
-it but ``mesh=``): ``PQCodebook``, ``train_indices``, ``pq_train``,
-``opq_train``, ``pq_encode``, ``pq_decode``, ``pq_dist_table``,
+Port of ``image_search_engine_for_historical_research_tpu/ops/pq.py``:
+``PQCodebook``, ``train_indices``, ``pq_train``, ``opq_train``,
+``pq_encode``, ``pq_decode``, ``pq_dist_table``,
 ``pq_ip_table``, ``pq_refine_rerank``, ``pq_pack4`` / ``pq_unpack4`` and
 ``pq_search``. Train M sub-codebooks with k-means, encode rows to ``(N, M)``
 codes, and at query time build a ``(Q, M, Ks)`` LUT and accumulate each
@@ -20,6 +20,12 @@ row's entries, streamed in chunks with a running top-k.
   the subspaces one after another; the port runs their k-means++ steps and
   Lloyd iterations together. ``train_indices`` is the JAX package's numpy
   rule, copied exactly.
+- **Sharded fits.** With ``mesh=`` (a ``parallel.data_mesh``), ``pq_train``
+  runs the batched fit with its rows sharded (``ops.kmeans.fit_sharded``)
+  when the fit rows divide the mesh, and on each rank alone otherwise,
+  without a word, as JAX does; ``opq_train`` rounds its two samples down to
+  a multiple of the world size (never below it), so ``mesh=`` changes the
+  sample in both packages.
 - **The ADC scan.** ``method="gather"`` gathers each subspace's LUT entries
   by code (``adc``, which the PQ graph walks and the IVF probe use too);
   ``"onehot"`` is the JAX package's one-hot matmul (exact: the same numbers)
@@ -39,7 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .kmeans import kmeans_fit_batched, shared_draws
+from .kmeans import fit_sharded, kmeans_fit_batched, shared_draws, subspace_seed
 from .topk import _bmm_f32, _top_exact
 
 
@@ -132,12 +138,19 @@ def _rows(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
     return x[torch.as_tensor(idx, device=x.device)]
 
 
-def _subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype=None, init="kmeans++"):
+def _subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype=None, init="kmeans++",
+                   mesh=None):
     """The ``(M, Ks, ds)`` f32 centres of the M subspaces of ``fit_vecs
     (N, M * ds)``, fitted together (``kmeans_fit_batched`` over a strided
-    ``(M, N, ds)`` view), subspace ``m`` seeded by ``subspace_seed(seed, m)``."""
+    ``(M, N, ds)`` view), subspace ``m`` seeded by ``subspace_seed(seed, m)``.
+    With ``mesh``, the same fits with the rows sharded over it
+    (``ops.kmeans.fit_sharded``: the same initial centres, the sums
+    all-reduced)."""
     N, D = fit_vecs.shape
     sub = fit_vecs.reshape(N, M, D // M).transpose(0, 1)
+    if mesh is not None:
+        seeds = [subspace_seed(seed, m) for m in range(M)]
+        return fit_sharded(sub, Ks, seeds, mesh, iters, matmul_dtype=matmul_dtype, init=init)[0]
     centers, _ = kmeans_fit_batched(sub, Ks, iters, seed=seed, matmul_dtype=matmul_dtype,
                                     init=init)
     return centers
@@ -151,12 +164,14 @@ def pq_train(
     seed: int = 42,
     train_sample: Optional[int] = None,
     matmul_dtype=None,
+    mesh=None,
 ) -> PQCodebook:
     """Fit the M sub-codebooks, all subspaces together (``_subspace_fits``).
     Above ``LARGE_KS`` the fit defaults to bf16 assignment matmuls,
     a ``max(65536, 32 * Ks)``-row training subsample and the ``"points"``
     init; all three can be overridden. The full data is encoded exactly
-    afterwards by ``pq_encode``."""
+    afterwards by ``pq_encode``. ``mesh`` shards the fit's rows when they
+    divide it (``_subspace_fits``)."""
     N, D = vecs.shape
     if D % M:
         raise ValueError(f"dim {D} not divisible by M={M}")
@@ -171,7 +186,13 @@ def pq_train(
     fit_vecs = vecs
     if train_sample is not None and train_sample < N:
         fit_vecs = _rows(vecs, train_indices(N, train_sample, seed))
-    return PQCodebook(codewords=_subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype, init))
+    if mesh is not None:
+        from ..parallel.mesh import mesh_size
+
+        if fit_vecs.shape[0] % mesh_size(mesh):
+            mesh = None                 # rows that do not divide: one fit a rank, as JAX
+    return PQCodebook(codewords=_subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype, init,
+                                               mesh=mesh))
 
 
 def _procrustes(m: torch.Tensor) -> torch.Tensor:
@@ -191,6 +212,7 @@ def opq_train(
     opq_iters: int = 10,
     seed: int = 42,
     train_sample: Optional[int] = None,
+    mesh=None,
 ) -> PQCodebook:
     """OPQ: alternate PQ fits with an orthogonal Procrustes rotation update
     (Ge et al., CVPR'13, the non-parametric solution).
@@ -200,24 +222,33 @@ def opq_train(
     The rotation is learnt on ``min(N, max(16384, 8 * Ks))`` rows with short
     inner fits; the returned codebook is a full-``iters`` fit on
     ``min(N, max(16384, 16 * Ks))`` rows (its own sample, rotated a piece at
-    a time into one buffer), unless ``train_sample`` fixes both."""
+    a time into one buffer), unless ``train_sample`` fixes both. With
+    ``mesh``, both samples are rounded down to a multiple of the world size
+    (never below it) and every fit is sharded."""
     v = vecs.float()
     N, D = v.shape
     if D % M:
         raise ValueError(f"dim {D} not divisible by M={M}")
+    world = 1
+    if mesh is not None:
+        from ..parallel.mesh import mesh_size
+
+        world = mesh_size(mesh)
     ts = train_sample if train_sample is not None else min(N, max(16384, 8 * Ks))
+    ts = max(world, ts // world * world)
     x = _rows(v, train_indices(N, ts, seed)) if ts < N else v
     R = torch.eye(D, dtype=torch.float32, device=v.device)
     inner = max(4, iters // 3)
     with shared_draws():                  # every fit below draws the same numbers
         for _ in range(opq_iters):
             xr = x @ R
-            cb = pq_train(xr, M=M, Ks=Ks, iters=inner, seed=seed)
+            cb = pq_train(xr, M=M, Ks=Ks, iters=inner, seed=seed, mesh=mesh)
             xhat = pq_decode(cb, pq_encode(cb, xr))        # rotated space
             del xr
             R = _procrustes(x.T @ xhat)
             del xhat
         fs = train_sample if train_sample is not None else min(N, max(16384, 16 * Ks))
+        fs = max(world, fs // world * world)
         if fs <= ts:
             xr = x @ R
             del x
@@ -228,7 +259,7 @@ def opq_train(
             step = 65536
             for s in range(0, fs, step):
                 xr[s:s + step] = _rows(v, fidx[s:s + step]) @ R
-        cb = pq_train(xr, M=M, Ks=Ks, iters=iters, seed=seed)
+        cb = pq_train(xr, M=M, Ks=Ks, iters=iters, seed=seed, mesh=mesh)
     return PQCodebook(codewords=cb.codewords, rotation=R)
 
 

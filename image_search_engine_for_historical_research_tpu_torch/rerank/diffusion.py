@@ -1,7 +1,7 @@
 """kNN-graph diffusion (random walk) re-ranking.
 
 Port of ``image_search_engine_for_historical_research_tpu/rerank/diffusion.py``
-(:33-520), all of it except the mesh path:
+(:33-520):
 
 offline -- a kNN graph over the gallery, the mutual-kNN affinity
 ``relu(sims)^3``, the symmetric-normalized Laplacian ``I - alpha D^-1/2 A
@@ -24,8 +24,15 @@ for ``approximate=True`` (the TPU's ``approx_max_k``) on its large paths; on
 the CPU that is the exact top-k in JAX too, and on the card the port's
 ``exact_topk`` is exact (unlike a TPU). Products of bf16 rows are scored in
 f32 (``ops.topk._matmul_f32`` / ``_bmm_f32``), as JAX's
-``preferred_element_type=float32``. ``mesh=`` (a sharded build) raises: it is
-ROADMAP's multi-GPU item.
+``preferred_element_type=float32``.
+
+``mesh=`` (a ``parallel.data_mesh``) shards the build over the ranks, each of
+which returns the same artifact: the self-kNN of the Laplacian and each
+batch's support kNN run as ``parallel.sharded_exact_topk`` over the gallery's
+rows when N divides the mesh, and each rank solves its slice of a batch's CG
+systems when the batch's rows divide it (an all-gather joins the slices;
+otherwise every rank solves the whole batch). The default solver stays
+``"tables"`` above the regime when a mesh is given, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.topk import _bmm_f32, _top_exact, exact_topk
+from ..parallel.mesh import full_rows, gather_rows, local_rows, mesh_size
+from ..parallel.topk import sharded_exact_topk
 
 GAMMA = 3          # affinity exponent
 ALPHA = 0.99       # Laplacian alpha
@@ -53,10 +62,6 @@ DIFFUSION_REGIME_MAX = 120_000
 # one bf16 copy of the gallery instead of one call
 KNN_GRAPH_ONECALL_BYTES = 3 << 30
 KNN_GRAPH_QROWS = 8192
-
-_MESH_MESSAGE = ("mesh= (a sharded diffusion build) is not ported yet: see "
-                 "ROADMAP, multi-GPU")
-
 
 # the artifact's score dtypes (``score_dtype`` is a numpy dtype, as in JAX)
 _TORCH_SCORE_DTYPE = {np.dtype(np.float16): torch.float16, np.dtype(np.float32): torch.float32}
@@ -147,9 +152,10 @@ def _laplacian_rows(vecs: torch.Tensor, kd: int, mesh=None):
     """Padded-row normalized Laplacian: (nbr (N, kd), val (N, kd)).
 
     Row i of L is ``1`` at i plus ``val[i, m]`` at column ``nbr[i, m]``
-    (masked entries have val 0)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+    (masked entries have val 0). ``mesh`` shards the self-kNN pass when
+    the rows divide it."""
+    if mesh is not None and vecs.shape[0] % mesh_size(mesh) == 0:
+        return _laplacian_from_knn(*sharded_exact_topk(vecs, vecs, kd, mesh, metric="ip"))
     return _laplacian_from_knn(*_knn_graph(vecs, kd))
 
 
@@ -259,12 +265,23 @@ def _knn_and_solve(rows, vecs, lap_nbr, lap_val, k, approx=False):
     return tids, _batched_trunc_cg(lap_nbr, lap_val, tids)
 
 
-def _knn_and_solve_sharded(*args, **kwargs):
-    raise NotImplementedError(_MESH_MESSAGE)
+def _sharded_cg(lap_nbr, lap_val, trunc_ids, mesh):
+    """``_batched_trunc_cg`` with the batch's rows split over ``mesh``:
+    each rank solves its slice (independent systems), an all-gather joins
+    them."""
+    local, _ = local_rows(trunc_ids, mesh)
+    return gather_rows(_batched_trunc_cg(lap_nbr, lap_val, local), mesh)
 
 
-def _sharded_cg_fn(*args, **kwargs):
-    raise NotImplementedError(_MESH_MESSAGE)
+def _knn_and_solve_sharded(rows, vecs, lap_nbr, lap_val, k, mesh):
+    """``_knn_and_solve`` over a mesh: the support kNN by
+    ``sharded_exact_topk`` over the gallery's rows, the CG systems split
+    over the ranks when the batch's rows divide the mesh (else every rank
+    solves them all)."""
+    _, tids = sharded_exact_topk(rows, vecs, k, mesh, metric="ip")
+    if rows.shape[0] % mesh_size(mesh) == 0:
+        return tids, _sharded_cg(lap_nbr, lap_val, tids, mesh)
+    return tids, _batched_trunc_cg(lap_nbr, lap_val, tids)
 
 
 def budget_trunc_size(n: int, n_trunc: int, memory_budget_bytes: int, score_bytes: int = 2) -> int:
@@ -311,9 +328,15 @@ def build_diffusion_offline(
     seconds of the kNN graph pass (``knn_s``) and of the batch sweep
     (``sweep_s``), each after a device synchronize, and with the recompute
     solver the graph itself (``knn``: sims and ids).
+
+    ``mesh`` (a ``parallel.data_mesh``; ``TypeError`` for anything else)
+    shards the kNN passes and the CG solves over its ranks, each of which
+    gets the whole artifact (see the module docstring).
     """
+    world = None
     if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+        world = mesh_size(mesh)
+        vecs = full_rows(vecs)
     N = vecs.shape[0]
     if N > DIFFUSION_REGIME_MAX and not allow_large:
         raise ValueError(
@@ -329,7 +352,7 @@ def build_diffusion_offline(
         score_dtype = np.float16 if host_out else np.float32
     del approx_support  # exact supports on every device, see the module docstring
     if solver is None:
-        solver = "recompute" if N > DIFFUSION_REGIME_MAX else "tables"
+        solver = "recompute" if N > DIFFUSION_REGIME_MAX and mesh is None else "tables"
     if solver not in ("tables", "recompute"):
         raise ValueError(f"unknown solver: {solver!r}")
 
@@ -346,7 +369,7 @@ def build_diffusion_offline(
             stats["knn"] = (sims, ids)
         del sims, ids
     else:
-        lap_nbr, lap_val = _laplacian_rows(vecs, kd)
+        lap_nbr, lap_val = _laplacian_rows(vecs, kd, mesh=mesh)
     _sync(dev)
     t1 = time.perf_counter()
 
@@ -356,6 +379,8 @@ def build_diffusion_offline(
         rows = vecs[start:start + batch]
         if solver == "recompute":
             tids, sc = _knn_and_solve_vec(rows, vecs, thresh, dinv, T)
+        elif world is not None and N % world == 0:
+            tids, sc = _knn_and_solve_sharded(rows, vecs, lap_nbr, lap_val, T, mesh)
         else:
             tids, sc = _knn_and_solve(rows, vecs, lap_nbr, lap_val, T)
         if host_out:

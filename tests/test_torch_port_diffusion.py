@@ -214,7 +214,7 @@ def test_regime_guard_and_budget():
         td.build_diffusion_offline(FakeShape())
     with pytest.raises(ValueError, match="solver"):
         td.build_diffusion_offline(t(clustered(n=40)), n_trunc=16, kd=4, solver="bogus")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         td.build_diffusion_offline(t(clustered(n=40)), mesh=object())
     for args in [(1_000_000, 2000, 4 << 30, 2), (1_000_000, 2000, 3 << 30, 2),
                  (1000, 2000, 1 << 30, 4), (10_000_000, 2000, 1 << 20, 2)]:

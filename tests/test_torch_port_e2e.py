@@ -172,12 +172,39 @@ def test_unported_matching_methods_exit(services, method):
             tsvc.close()
 
 
-def test_unported_modes_raise(services, tmp_path):
-    """What the port still refuses: a sharded diffusion build (multi-GPU).
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of one rank in this process, as ``data_mesh``
+    starts it with no group running; destroyed after the test."""
+    import torch.distributed as dist
+
+    from image_search_engine_for_historical_research_tpu_torch.parallel import data_mesh
+
+    assert not dist.is_initialized()
+    try:
+        yield data_mesh(device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_unported_modes_raise(services, world_of_one):
+    """What the port once refused, a sharded diffusion build, now serves: the
+    served gallery's artifact built over a mesh (a world of one) equals the
+    unsharded one, and a service re-ranks with it as with that one.
     ``--coalesce`` and ``rerank="diffusion"`` are served
     (``tests/test_torch_port_serving.py``); ``--methods sift`` and ``loftr``
     re-rank, also beside other methods
     (``tests/test_torch_port_geometric.py``)."""
-    _, tsvc, _, _ = services
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        build_diffusion_offline(torch.as_tensor(tsvc.vecs), n_trunc=8, kd=4, mesh=object())
+    _, tsvc, q_paths, _ = services
+    vecs = torch.as_tensor(tsvc.vecs)
+    plain = build_diffusion_offline(vecs, n_trunc=8, kd=4)
+    sharded = build_diffusion_offline(vecs, n_trunc=8, kd=4, mesh=world_of_one)
+    np.testing.assert_array_equal(sharded.trunc_ids.numpy(), plain.trunc_ids.numpy())
+    np.testing.assert_array_equal(sharded.scores.numpy(), plain.scores.numpy())
+    ranked = []
+    for off in (plain, sharded):
+        svc = copy.copy(tsvc)
+        svc.rerank, svc.diffusion_offline = "diffusion", off
+        ranked.append([_ids(svc.query_image(p)[0]) for p in q_paths])
+    assert ranked[0] == ranked[1]

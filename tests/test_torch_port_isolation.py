@@ -58,6 +58,13 @@ state = init_loftr_train_state(m, *make_loftr_optimizer(m))
 make_loftr_train_step()(state, torch.from_numpy(pair), torch.eye(3)[None])
 k, s, d = d2net.process_multiscale(np.ones((32, 32, 3), np.float32), d2net.init_d2net(device="cpu"))
 assert d.shape[1] == 512
+import torch.distributed as dist
+from {PKG}.parallel import data_mesh, sharded_exact_topk
+mesh = data_mesh(device="cpu")
+_, ids = sharded_exact_topk(torch.from_numpy(rows[:2]), torch.from_numpy(rows), 3, mesh)
+assert ids[:, 0].tolist() == [0, 1]
+build_pq(rows, M=16, Ks=16, iters=2, device="cpu", mesh=mesh)
+dist.destroy_process_group()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "{JAX_PKG}"]
 assert not bad, bad
@@ -154,6 +161,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):
         init_network()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         common.load_network()
+    from image_search_engine_for_historical_research_tpu_torch.parallel import data_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_mesh()
     for build in (build_hnsw, build_hnsw_device, build_flat, build_pq, build_hnsw_pq,
                   build_ivfpq):
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -175,7 +175,9 @@ def substitute_jax_fits(monkeypatch):
     from image_search_engine_for_historical_research_tpu_torch.index import pq as tipq
     from image_search_engine_for_historical_research_tpu_torch.ops import pq as tpq
 
-    def subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype=None, init="kmeans++"):
+    def subspace_fits(fit_vecs, Ks, iters, seed, M, matmul_dtype=None, init="kmeans++",
+                      mesh=None):
+        assert mesh is None, "substitute_jax_fits holds unsharded builds"
         x = jnp.asarray(fit_vecs.cpu().numpy())
         ds = x.shape[1] // M
         keys = jax.random.split(jax.random.PRNGKey(seed), M)
@@ -184,7 +186,9 @@ def substitute_jax_fits(monkeypatch):
                 for m in range(M)]
         return torch.as_tensor(np.stack([np.asarray(c) for c in fits]), device=fit_vecs.device)
 
-    def opq_train(vecs, M=16, Ks=256, iters=20, opq_iters=10, seed=42, train_sample=None):
+    def opq_train(vecs, M=16, Ks=256, iters=20, opq_iters=10, seed=42, train_sample=None,
+                  mesh=None):
+        assert mesh is None, "substitute_jax_fits holds unsharded builds"
         cb = jpq.opq_train(jnp.asarray(vecs.cpu().numpy()), M=M, Ks=Ks, iters=iters,
                            opq_iters=opq_iters, seed=seed, train_sample=train_sample)
         return tpq.PQCodebook.from_numpy(cb.codewords, cb.rotation, device=vecs.device)
@@ -193,7 +197,8 @@ def substitute_jax_fits(monkeypatch):
         return np.asarray(jax.random.choice(jax.random.PRNGKey(seed), N, shape=(n_train,),
                                             replace=False))
 
-    def coarse_fit(sample, nlist, iters, seed):
+    def coarse_fit(sample, nlist, iters, seed, mesh=None):
+        assert mesh is None, "substitute_jax_fits holds unsharded builds"
         c, _ = jkm.kmeans_fit(jnp.asarray(sample.cpu().numpy()), nlist, iters,
                               jax.random.PRNGKey(seed))
         return torch.as_tensor(np.asarray(c), device=sample.device)
