@@ -129,7 +129,7 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    the card against the CPU (f64: loss and every gradient; f32: the loss),
    ``conv1``-``conv4_x`` without gradients; the ladder of
    ``scripts/measure_train_kr.py`` (unfrozen, frozen, + bf16, + remat, at 10
-   tuples) with s/step (median of 10 CUDA-event steps after 2 warm-ups),
+   tuples) with s/step (median of 3 CUDA-event steps after 2 warm-ups),
    img/s, peak memory, FLOPs a step (``FlopCounterMode``) and ``mfu``
    against 67 TFLOP/s f32 or 989 TFLOP/s bf16; remat's loss and gradients
    against the step without it (rtol 1e-5, no higher peak); ``cli.train``
@@ -169,11 +169,11 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    8 photographs at 768 x 1024, 2 at 384 x 512 against JAX and the CPU,
    and its features through AdaLAM on the card and the CPU. The CPU halves
    run in child processes beside the card's work. (The PQ graph walks'
-   route records are timed over 2 + 3 calls, a depth cut for the time
+   route records are timed over 1 + 1 calls, a depth cut for the time
    limit.)
 11. Multi-GPU builds (``parallel``, ``mesh=``), in an NCCL world of one
    started in this process by ``data_mesh()`` (its start and first
-   all-reduce timed) and destroyed after: the PQ determinism phase's second
+   all-reduce timed) and destroyed after the slice-10 phases: the PQ determinism phase's second
    ``build_pq`` and ``build_ivfpq`` and its streamed ``build_pq`` run
    sharded; then ``parallel_phase``: ``sharded_exact_topk`` of 70 queries
    over the 1M rows against ``FlatIndex``'s top-100, ``build_hnsw_device``
@@ -186,12 +186,28 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    peak memory go into a ``{"parallel": {...}}`` line. (One card cannot hold an
    NCCL world of two: collectives across cards are checked only by the
    CPU tests' gloo world of two.)
+12. The batch-sharded steps (slice 12), over the same NCCL world of one,
+   kept from the slice-11 phases to the end of the slice-10 ones, each
+   inside the phase that holds its inputs:
+   ``cli.extract_1m --mesh --limit 32 --shard-size 16`` against the
+   one-shot rows and one batch of 16 photographs through
+   ``make_sharded_extract_fn`` against ``make_extract_fn``
+   (``extract_1m_phase``); the SAHA phase's 8 images through
+   ``make_sharded_sift_fn`` against ``sift_program`` (every field equal);
+   one SOLAR step's loss and gradients with ``mesh=`` (contrastive + SOS,
+   3 tuples of S=4) against the unsharded step's (``train_phase``); one
+   f32 and one ``accum=2`` LoFTR step with ``mesh=`` at 480 x 640, 4 pairs,
+   against the unsharded steps (``loftr_train_phase``). In a world of one
+   the sharded code runs the unsharded arithmetic, so the steps (under
+   deterministic cuDNN) must be identical: losses, gradients and (LoFTR)
+   the parameters after the step.
+   A ``{"sharded_steps": {...}}`` line gathers each check and its seconds.
 
 Kernel times are medians of CUDA events around one call with the L2 flushed
 before it (``ms``), and the same with a spin kernel queued ahead of the first
 event, so the host's launch gaps are hidden (``device_ms``). The plain
-version's ``plain_ms`` is the median of 3 calls at the served shapes and
-one call (after a warm-up) at 1M and above, a cut for the time limit.
+version's ``plain_ms`` is one call after a warm-up, a cut for the time
+limit.
 
 Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
 run: the HNSW and diffusion services, the coalesced batches and the SAHA
@@ -202,12 +218,15 @@ and LoFTR runs' HNSW matchers), a
 line with the extraction and training numbers, a ``{"saha": {...}}`` line
 with the SAHA phase's, a ``{"slice10": {...}}`` line with the LoFTR and
 D2-Net phases', a ``{"parallel": {...}}`` line with the sharded builds',
-then the ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+a ``{"sharded_steps": {...}}`` line with the sharded steps' checks, then
+the ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it does so too without a
 CUDA device.
 """
 
+import atexit
+import contextlib
 import io
 import json
 import os
@@ -980,8 +999,8 @@ def pq_targets():
 
 
 def trace_op(fn):
-    """One call of ``fn`` under ``torch.profiler`` (after a warm call): the
-    device events it ran (kernels, copies, sets), their busy time (the union
+    """One call of ``fn`` under ``torch.profiler`` (every caller has just
+    timed ``fn``, so it is warm): the device events it ran (kernels, copies, sets), their busy time (the union
     of their intervals), the span from the first event's start to the last
     one's end, the idle share of that span (the gaps between events, where
     the card waits for the host) and the three names with the most device
@@ -990,7 +1009,6 @@ def trace_op(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1132,8 +1150,8 @@ def pq_1m_phase(vecs, dev, flush, card):
                                                         "n_seeds": 32}),
                      ("hnsw_pq graph+refine coarse", {"method": "graph+refine", "ef": 320,
                                                       "n_seeds": 32, "centroid_walk": False})):
-        # the walks take 0.6-0.9 s a call: fewer timed calls (a depth cut)
-        route(name, b, b_cpu, reps=(2, 3) if kw["method"] == "graph+refine" else (5, 10), **kw)
+        # the walks take 0.5-0.9 s a call: one timed call each (a depth cut)
+        route(name, b, b_cpu, reps=(1, 1) if kw["method"] == "graph+refine" else (5, 10), **kw)
     check(out["routes"]["hnsw_pq adc+refine"]["recall100"]
           >= out["routes"]["hnsw_pq adc"]["recall100"], "HNSW-PQ: adc+refine below adc")
     # the host expansion between the unique-code scan and the re-rank
@@ -1182,7 +1200,7 @@ def pq_1m_phase(vecs, dev, flush, card):
         finally:
             setattr(gs, fn_name, orig)
         op(walk, run, rows["n"] * per_row, rows["n"] * (M + (Mr + 3 if centroid else 0)),
-           reps=3, rows_scored=rows["n"], ef=320, n_seeds=32)
+           reps=1, rows_scored=rows["n"], ef=320, n_seeds=32)
     del b, b_cpu, ou, oi, va
     torch.cuda.empty_cache()
 
@@ -1772,11 +1790,12 @@ def matchers_1m_phase(vecs, dev, flush, card):
         print(f"matchers build {name}: {json.dumps(st)} ({card})", flush=True)
         return obj
 
-    def method(name, search, cpu_search, nbytes, ops, rate=F32_FLOPS, truth=exact, reps=5,
+    def method(name, search, cpu_search, nbytes, ops, rate=F32_FLOPS, truth=exact, reps=3,
                score=None, **extra):
         """``search(queries) -> (scores, ids)`` on the card, ``cpu_search``
         on the CPU; ``score(ids, queries)`` re-scores ids on the CPU where
-        the search returns none."""
+        the search returns none. 3 timed calls at each Q (a depth cut for
+        the time limit)."""
         _, ids = search(q)
         rec = {"recall10": recall_at(truth, ids, 10), "recall100": recall_at(truth, ids, 100),
                "ms_q70": time_ms(lambda: search(q), reps, flush),
@@ -2045,7 +2064,7 @@ def make_revisitop(root, n_scenes=32, views=7, seed=7):
         f.write("\n".join(sorted(os.listdir(jpg))))
 
 
-def extract_1m_phase(data_root, ckpt, tmp, card):
+def extract_1m_phase(data_root, ckpt, tmp, card, mesh):
     """``cli.extract_1m`` at full width (ResNet101-SOLAR, 1024 px, the CLI's
     three default scales, batch 16) over the revisitop1m layout, decoding
     with PIL: sharded (``--shard-size 128``) with ``--limit`` at half the
@@ -2053,8 +2072,24 @@ def extract_1m_phase(data_root, ckpt, tmp, card):
     The resumed shards equal the one-shot rows (1e-4); bf16 keeps a mean
     cosine >= 0.999 to them; ``build_pq(M=16, Ks=256)`` from ``chunked_feature_source``
     equals the in-memory build, array for array. (The native loader is not
-    driven here: the card's machine has no libjpeg, ``PERF.md`` section 4.)"""
+    driven here: the card's machine has no libjpeg, ``PERF.md`` section 4.)
+    Then over ``mesh`` (an NCCL world of one): ``--mesh --limit 32
+    --shard-size 16`` (its shards against the one-shot rows: identical
+    predicted, else within 1e-6) and one batch of 16 photographs through
+    ``make_sharded_extract_fn`` against ``make_extract_fn`` (the same)."""
     from image_search_engine_for_historical_research_tpu_torch.cli import extract_1m
+    from image_search_engine_for_historical_research_tpu_torch.cli.common import (
+        load_network,
+        parse_scales,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.data.images import (
+        bucket_batches,
+        iter_test_images,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.models import (
+        make_extract_fn,
+        make_sharded_extract_fn,
+    )
     from image_search_engine_for_historical_research_tpu_torch.data import (
         chunked_feature_relpaths,
         chunked_feature_source,
@@ -2119,6 +2154,34 @@ def extract_1m_phase(data_root, ckpt, tmp, card):
         check(np.array_equal(np.asarray(a[k]), np.asarray(b[k])), f"streamed PQ array {k} differs")
     out["checks"]["streamed_build_pq_equal"] = sorted(a)
     out["checks"]["streamed_build_pq_s"] = stream_s
+
+    # slice 12: the batch-sharded extraction over the world of one
+    t0 = time.perf_counter()
+    run("--mesh, --limit 32", os.path.join(tmp, "x1m_mesh"), "--mesh", "--shard-size", "16",
+        "--limit", "32")
+    chunks_fn, n_mesh = chunked_feature_source("revisitop1m", root=os.path.join(tmp, "x1m_mesh"))
+    got = np.concatenate(list(chunks_fn()))
+    diff = float(np.abs(got - rows["f32"][:32]).max())
+    sharded = {"cli": {"rows": n_mesh, "shards": len(chunked_feature_relpaths(
+        "revisitop1m", root=os.path.join(tmp, "x1m_mesh"))) // 16, "identical": diff == 0.0,
+        "max_abs_diff": diff, "s": time.perf_counter() - t0}}
+    check(n_mesh == 32 and diff <= 1e-6, f"--mesh rows: {n_mesh}, {diff} from the one-shot rows")
+    t0 = time.perf_counter()
+    model = load_network(ckpt, device="cuda")
+    scales = parse_scales(extract_1m.build_parser().get_default("multiscale"))
+    batch = next(iter(bucket_batches(iter_test_images(
+        [os.path.join(data_root, "revisitop1m", "jpg", nm) for nm in names[:16]], imsize=1024),
+        16)))
+    images, mask = (torch.from_numpy(a).cuda() for a in (batch.images, batch.mask))
+    want = make_extract_fn(model.module, scales)(images, mask)
+    got = make_sharded_extract_fn(model.module, mesh, scales)(images, mask)
+    diff = float((got - want).abs().max())
+    sharded["batch"] = {"images": list(images.shape), "identical": bool(torch.equal(got, want)),
+                        "max_abs_diff": diff, "s": time.perf_counter() - t0}
+    check(got.shape == (16, 2048) and diff <= 1e-6,
+          f"make_sharded_extract_fn: {diff} from make_extract_fn")
+    out["sharded"] = sharded
+    del model
     print(f"extract_1m phase: {json.dumps(out)} ({card})", flush=True)
     return out
 
@@ -2323,7 +2386,7 @@ def write_saha_shortlist(cfg, jpg, ranks, counts, maps, b):
                    "map": maps}, f)
 
 
-def saha_phase(x1m_root, oneshot, tmp, flush, card, n_check=4, b=30):
+def saha_phase(x1m_root, oneshot, tmp, flush, card, mesh, n_check=4, b=30):
     """SAHA geometric verification at the JAX defaults (device SIFT at
     1000 x 1000, 1,024 keypoints, 4 octaves; AdaLAM's DEFAULT_CONFIG; b=30,
     pair_batch=8, dispatch scan) through ``cli.test_reranking --methods sift
@@ -2337,10 +2400,12 @@ def saha_phase(x1m_root, oneshot, tmp, flush, card, n_check=4, b=30):
     from the stored features, card against CPU (at most 2% of the pairs
     differ, by at most 1) and the banked pair batches against the per-pair
     verifier (equal). The CPU halves run in child processes beside the
-    card's work. mAP E/M/H before and after are printed: half the views are
-    mirrored and SIFT is not mirror-invariant, and the JAX package's re-rank
-    lowers mapM on these photographs too (``PERF.md`` section 5), so mapM
-    is held to JAX's, not to the baseline."""
+    card's work. The 8 images also go through ``make_sharded_sift_fn`` over
+    ``mesh`` (an NCCL world of one): every field equal to
+    ``sift_program``'s. mAP E/M/H before and after are printed: half the
+    views are mirrored and SIFT is not mirror-invariant, and the JAX
+    package's re-rank lowers mapM on these photographs too (``PERF.md``
+    section 5), so mapM is held to JAX's, not to the baseline."""
     from image_search_engine_for_historical_research_tpu_torch import rerank
     from image_search_engine_for_historical_research_tpu_torch.cli import test_reranking
     from image_search_engine_for_historical_research_tpu_torch.data import configdataset
@@ -2417,9 +2482,21 @@ def saha_phase(x1m_root, oneshot, tmp, flush, card, n_check=4, b=30):
         print(f"SAHA against the JAX package: {json.dumps(out['jax_reference'])} ({card})",
               flush=True)
         budgets = sift.default_budgets(1024, 4)
-        sift_card = {k: v.cpu().numpy() for k, v in sift.sift_program(torch.as_tensor(
-            sift_images([os.path.join(jpg, n + ".jpg") for n in sift_names]), device="cuda"),
-            4, budgets).items()}
+        imgs8 = torch.as_tensor(sift_images([os.path.join(jpg, n + ".jpg") for n in sift_names]),
+                                device="cuda")
+        program = sift.sift_program(imgs8, 4, budgets)
+        sift_card = {k: v.cpu().numpy() for k, v in program.items()}
+        t0 = time.perf_counter()
+        sharded = sift.make_sharded_sift_fn(mesh, tuple(imgs8.shape[1:]), max_kpts=1024,
+                                            n_octaves=4)(imgs8)
+        out["sharded_sift"] = {"images": len(sift_names), "fields": sorted(program),
+                               "equal": sorted(k for k in program
+                                               if torch.equal(sharded[k], program[k])),
+                               "s": time.perf_counter() - t0}
+        check(out["sharded_sift"]["equal"] == sorted(program),
+              f"make_sharded_sift_fn: fields equal to sift_program's: "
+              f"{out['sharded_sift']['equal']} of {sorted(program)}")
+        del imgs8, program, sharded
         feats = {n: geometric.LocalFeatures.load(os.path.join(store, n + ".npz"))
                  for n in {n for pair in pairs for n in pair}}
         fq, fc = [feats[q] for q, _ in pairs], [feats[c] for _, c in pairs]
@@ -2542,7 +2619,58 @@ def _grads(module, images, labels):
                            for n, p in module.named_parameters()}
 
 
-def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Deterministic cuDNN, no autotuning, for a block that holds two runs
+    bit for bit; the previous settings come back after it."""
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+
+
+def same_tensors(a, b):
+    """``(every pair equal, the largest absolute difference)`` of two dicts
+    of tensors with the same keys."""
+    diff = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+    return all(torch.equal(a[k], b[k]) for k in a), diff
+
+
+def sharded_solar_check(module, mesh, dev, S=4, tuples=3):
+    """One SOLAR step's loss and gradients (``make_grad_fn``) over ``mesh``
+    against the unsharded step's from the same state (contrastive + SOS at
+    lambda 10, unfrozen, 3 tuples of S=4 at 362 px: over two ranks tuple 1
+    would straddle them), under deterministic cuDNN. In a world of one both
+    must be identical."""
+    from image_search_engine_for_historical_research_tpu_torch.train import make_grad_fn
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randn((S * tuples, TRAIN_PX, TRAIN_PX, 3), device=dev, generator=g)
+    labels = torch.tensor([-1, 1] + [0] * (S - 2), dtype=torch.int32, device=dev).repeat(tuples)
+    runs = {}
+    t0 = time.perf_counter()
+    try:
+        with deterministic_cudnn():
+            for label, m in (("unsharded", None), ("sharded", mesh)):
+                module.zero_grad(set_to_none=True)
+                loss = make_grad_fn(module, S, lambda_sos=10.0, mesh=m)(images, labels)
+                runs[label] = loss, {n: p.grad.clone() for n, p in module.named_parameters()}
+    finally:
+        module.zero_grad(set_to_none=True)
+    (l0, g0), (l1, g1) = runs["unsharded"], runs["sharded"]
+    grads_equal, grad_diff = same_tensors(g1, g0)
+    rec = {"S": S, "tuples": tuples, "px": TRAIN_PX, "lambda_sos": 10.0,
+           "loss": float(l1), "loss_identical": bool(torch.equal(l0, l1)),
+           "grads_identical": grads_equal, "grad_max_abs_diff": grad_diff,
+           "s": time.perf_counter() - t0}
+    check(rec["loss_identical"] and grads_equal,
+          f"sharded SOLAR step against the unsharded one in a world of one: {rec}")
+    return rec
+
+
+def train_phase(online, ckpt, data_root, argv, tmp, dev, card, mesh):
     """Training at full width: ResNet101-SOLAR from the served checkpoint,
     contrastive + SOS (lambda 10), AdamW lr 1e-6 wd 1e-6, 7-image tuples at
     362 px. One frozen step on the card against the CPU: in f64 the loss and
@@ -2554,7 +2682,9 @@ def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
     gradients against the step without it; then ``cli.train`` end to end (2
     epochs with a held-out eval set, and the same run stopped after epoch 0
     and resumed, with deterministic cuDNN: equal epoch-1 losses), and one
-    POST served from the trained checkpoint."""
+    POST served from the trained checkpoint. Before the ladder, one step
+    over ``mesh`` (an NCCL world of one) against the unsharded step
+    (``sharded_solar_check``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from image_search_engine_for_historical_research_tpu_torch.cli import train as cli_train
@@ -2661,7 +2791,11 @@ def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
     del runs, g64, c64
     print(f"train card vs CPU: {json.dumps(out['card_vs_cpu'])} ({card})", flush=True)
 
-    # the ladder
+    # slice 12: the sharded step in the world of one
+    out["sharded"] = sharded_solar_check(model.module, mesh, dev)
+    print(f"train sharded step: {json.dumps(out['sharded'])} ({card})", flush=True)
+
+    # the ladder (3 timed steps a rung, a depth cut for the time limit)
     module = model.module
     for label, frozen, dtype, remat, tuples in TRAIN_RUNGS:
         opt, sched, _ = make_optimizer(module, lr=1e-6, weight_decay=1e-6, exp_decay=0.0,
@@ -2676,7 +2810,7 @@ def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
         for _ in range(2):
             state, loss = step(state, images, labels)
         times = []
-        for _ in range(10):
+        for _ in range(3):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             state, loss = step(state, images, labels)
@@ -2732,9 +2866,7 @@ def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
     common = ["--training-dataset", os.path.join(train_root, "db"), "--network-path", ckpt,
               "--sos", "--image-size", str(TRAIN_PX), "--query-size", "32",
               "--test-datasets", os.path.join(eval_root, "db"), "--device", "cuda"]
-    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
+    with deterministic_cudnn():
         runs = {}
         for label, argv_run in (
                 ("2 epochs", [os.path.join(tmp, "runs_full"), "--epochs", "2"]),
@@ -2743,8 +2875,6 @@ def train_phase(online, ckpt, data_root, argv, tmp, dev, card):
             t0 = time.perf_counter()
             check(cli_train.main(argv_run + common) == 0, f"cli.train {label} failed")
             runs[label] = time.perf_counter() - t0
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
     name = cli_train.run_name(cli_train.build_parser().parse_args(
         [os.path.join(tmp, "runs_full")] + common))
     logs = {}
@@ -3125,12 +3255,13 @@ def loftr_phase(tmp, flush, card, child, b=60):
             m0(*blk)
         flops_full = fc.get_total_flops()
         imgs8 = torch.cat(blk).permute(0, 3, 1, 2)
-        ops = {"count_block_ms": time_ms(lambda: m0(*blk, fine=False), 5, flush),
+        # 3 timed calls each (a depth cut for the time limit)
+        ops = {"count_block_ms": time_ms(lambda: m0(*blk, fine=False), 3, flush),
                "backbone_coarse_8_images_ms": time_ms(lambda: m0.backbone(imgs8, fine=False),
-                                                      5, flush),
-               "full_block_ms": time_ms(lambda: m0(*blk), 5, flush),
+                                                      3, flush),
+               "full_block_ms": time_ms(lambda: m0(*blk), 3, flush),
                "bf16_count_block_ms": time_ms(lambda: m0(*(x.bfloat16() for x in blk),
-                                                         fine=False), 5, flush),
+                                                         fine=False), 3, flush),
                "tflop_per_pair_count": flops_count / 4e12,
                "tflop_per_pair_full": flops_full / 4e12}
         ops["count_block_f32_peak_share"] = flops_count / (ops["count_block_ms"] / 1e3) / F32_FLOPS
@@ -3171,7 +3302,7 @@ LOFTR_TRAIN_SMALL = dict(initial_dim=16, block_dims=(16, 24, 32), d_coarse=32, d
                          nhead=4, coarse_layers=("self", "cross"), thr=0.0, max_matches=24)
 
 
-def loftr_train_phase(tmp, card, batch=4, steps=10):
+def loftr_train_phase(tmp, card, mesh, batch=4, steps=5):
     """``make_loftr_train_step`` at 480 x 640 (the default config, seeded
     weights, AdamW at the JAX defaults) on batches of ``batch`` pairs: four
     query photographs and their ``random_homography`` warps (jitter 0.1, as
@@ -3179,10 +3310,15 @@ def loftr_train_phase(tmp, card, batch=4, steps=10):
     + remat; bf16 + remat + ``accum=2``): 2 warm-up steps then the median of
     CUDA-event steps, pairs/s, peak memory, FLOPs a step from
     ``FlopCounterMode`` and ``mfu`` against 67 TFLOP/s f32 or 989 TFLOP/s
-    bf16. The f32 rung takes ``steps`` steps: the BN statistics must not
-    move, and its losses are printed. Then one step at JAX's small test
-    config (32 x 48, 4 pairs) in f64 on the card and on the CPU: the loss
-    within 1e-6 and every gradient leaf within 1e-4 of its norm."""
+    bf16. The f32 rung takes ``steps`` steps, the others 4 (a depth cut for
+    the time limit): the BN statistics must not
+    move, and the losses are printed. Then one f32 step and one f32
+    ``accum=2`` step over ``mesh`` (an NCCL world of one) against the
+    unsharded steps from the same weights, under deterministic cuDNN: the
+    losses, the gradients and the parameters after the step identical.
+    Then one step at JAX's small test config (32 x 48, 4 pairs) in f64 on
+    the card and on the CPU: the loss within 1e-6 and every gradient leaf
+    within 1e-4 of its norm."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from image_search_engine_for_historical_research_tpu_torch.models import loftr
@@ -3208,7 +3344,7 @@ def loftr_train_phase(tmp, card, batch=4, steps=10):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         losses, times = [], []
-        n = steps if label == "f32" else 7
+        n = steps if label == "f32" else 4
         for i in range(n):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -3233,6 +3369,37 @@ def loftr_train_phase(tmp, card, batch=4, steps=10):
         check(np.isfinite(losses).all(), f"LoFTR train {label}: losses {losses}")
         check(frozen, f"LoFTR train {label}: the frozen BN statistics moved")
         del m, state, step
+    torch.cuda.empty_cache()
+
+    # slice 12: the sharded steps in the world of one, from one set of weights
+    out["sharded"] = {}
+    m = loftr.init_matcher(seed=LOFTR_SEED, device="cuda")
+    start, start_cfg = m.state_dict(), m.config
+    for label, accum in (("f32", None), ("f32 accum=2", 2)):
+        runs = {}
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            for run, run_mesh in (("unsharded", None), ("sharded", mesh)):
+                m = loftr.LoFTRMatcher(start_cfg).cuda().eval()
+                m.load_state_dict(start)
+                state = init_loftr_train_state(m, *make_loftr_optimizer(m))
+                _, loss = make_loftr_train_step(accum=accum, mesh=run_mesh)(state, imgs, Hs)
+                runs[run] = (loss, {k: p.grad.clone() for k, p in m.named_parameters()},
+                             {k: p.detach().clone() for k, p in m.named_parameters()})
+                del m, state
+        (l0, g0, p0), (l1, g1, p1) = runs["unsharded"], runs["sharded"]
+        grads_equal, grad_diff = same_tensors(g1, g0)
+        params_equal, param_diff = same_tensors(p1, p0)
+        rec = {"loss": float(l1), "loss_identical": bool(torch.equal(l0, l1)),
+               "grads_identical": grads_equal, "grad_max_abs_diff": grad_diff,
+               "params_identical": params_equal, "param_max_abs_diff": param_diff,
+               "s": time.perf_counter() - t0}
+        out["sharded"][label] = rec
+        print(f"LoFTR train sharded step {label}: {json.dumps(rec)} ({card})", flush=True)
+        check(rec["loss_identical"] and grads_equal and params_equal,
+              f"sharded LoFTR step ({label}) against the unsharded one in a world of one")
+        del runs, g0, g1, p0, p1
+    del start
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(1)
@@ -3394,14 +3561,14 @@ def main():
     pq_rec = timed("pq_1m", pq_1m_phase, big, dev, flush, card)
 
     # slice 11: an NCCL world of one in this process; the PQ determinism
-    # phase's second builds and the parallel phase's sharded builds run over it
+    # phase's second builds and the parallel phase's sharded builds run over
+    # it, and (slice 12) the batch-sharded steps inside the slice-7, 9 and 10
+    # phases. It ends after them, or at exit if a phase fails
     mesh, par_rec = start_mesh()
-    try:
-        pq_rec["determinism"] = timed("pq_determinism", pq_determinism_phase, big, dev, card,
-                                      mesh)
-        par_rec.update(timed("parallel", parallel_phase, bs, big, mesh, dev, flush, card))
-    finally:
-        torch.distributed.destroy_process_group()
+    atexit.register(lambda: torch.distributed.is_initialized()
+                    and torch.distributed.destroy_process_group())
+    pq_rec["determinism"] = timed("pq_determinism", pq_determinism_phase, big, dev, card, mesh)
+    par_rec.update(timed("parallel", parallel_phase, bs, big, mesh, dev, flush, card))
 
     # the remaining matchers on the same rows, then HNSW above the kernel's N limit
     match_rec = timed("matchers_1m", matchers_1m_phase, big, dev, flush, card)
@@ -3528,20 +3695,21 @@ def main():
                                      common, argv, paths, card)
         match_rec["regional"] = timed("regional", regional_phase, paths, dev, card)
 
-        # slice 7: extraction at scale and training (no K1 path)
+        # slice 7: extraction at scale and training (no K1 path); slice 12's
+        # sharded extraction and SOLAR step inside them, over the world of one
         bs.launches = 0
         timed("revisitop_layout", make_revisitop, os.path.join(tmp, "x1m_data"))
         slice7 = {"extract_1m": timed("extract_1m", extract_1m_phase,
-                                     os.path.join(tmp, "x1m_data"), ckpt, tmp, card)}
+                                     os.path.join(tmp, "x1m_data"), ckpt, tmp, card, mesh)}
         slice7["train"] = timed("train", train_phase, online, ckpt, data_root, argv_l2, tmp, dev,
-                                card)
+                                card, mesh)
         torch.cuda.synchronize()
         check(bs.launches == 0, f"the slice-7 phases launched the beam kernel {bs.launches} times")
         torch.cuda.empty_cache()
 
         # slice 9: SAHA geometric verification over the extraction phase's images and rows
         saha = timed("saha", saha_phase, os.path.join(tmp, "x1m_data"),
-                     os.path.join(tmp, "x1m_oneshot"), tmp, flush, card)
+                     os.path.join(tmp, "x1m_oneshot"), tmp, flush, card, mesh)
         torch.cuda.empty_cache()
 
         # slice 10: LoFTR and D2-Net over the SAHA layout's photographs, the
@@ -3554,14 +3722,21 @@ def main():
                                                         D2NET_PAIRS], outs10[1], 3), outs10[1])]
         try:
             slice10 = {"loftr": timed("loftr", loftr_phase, tmp, flush, card, children[0])}
-            slice10["loftr_train"] = timed("loftr_train", loftr_train_phase, tmp, card)
+            slice10["loftr_train"] = timed("loftr_train", loftr_train_phase, tmp, card, mesh)
             slice10["d2net"] = timed("d2net", d2net_phase, tmp, card, children[1])
         finally:
             for proc, _ in children:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+        torch.distributed.destroy_process_group()     # the last phase over the world of one
         torch.cuda.empty_cache()
+        sharded_rec = {
+            "extract_1m_cli": slice7["extract_1m"]["sharded"]["cli"],
+            "extract_batch": slice7["extract_1m"]["sharded"]["batch"],
+            "sift": saha["sharded_sift"],
+            "solar_step": slice7["train"]["sharded"],
+            "loftr_steps": slice10["loftr_train"]["sharded"]}
 
         d_launches, coalesce_rec = served_rerank_phase(
             bs, svc, lambda: online.make_service(online.build_parser().parse_args(
@@ -3577,7 +3752,7 @@ def main():
         served = []
         for q in (1, 32):
             rec = measure(bs, idx.vectors, idx.nbr0, qv[:q].contiguous(),
-                          starts[:q].contiguous(), flush, tie=None)
+                          starts[:q].contiguous(), flush, tie=None, plain_reps=1)
             served.append(rec)
             print("beam_search served:", json.dumps(rec), flush=True)
         phase_split(bs, "served Q=1", idx.vectors, idx.nbr0, qv[:1].contiguous(),
@@ -3616,6 +3791,7 @@ def main():
     print(json.dumps({"saha": saha}))
     print(json.dumps({"slice10": slice10}))
     print(json.dumps({"parallel": par_rec}))
+    print(json.dumps({"sharded_steps": sharded_rec, "card": card}))
     print(json.dumps({"phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

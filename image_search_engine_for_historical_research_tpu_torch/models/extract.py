@@ -1,10 +1,10 @@
 """Descriptor extraction: multi-scale forward over masked, padded batches.
 
-Port of ``image_search_engine_for_historical_research_tpu/models/extract.py``
-(:24-113, :153-231). Resizes match ``jax.image.resize``: bilinear with
-antialiasing (it antialiases when it downscales) for images, ``nearest-exact``
-for the mask, sizes ``int(H * s)``. The sharded extract function is not
-ported yet (multi-GPU, ROADMAP section 1, item 5).
+Port of ``image_search_engine_for_historical_research_tpu/models/extract.py``.
+Resizes match ``jax.image.resize``: bilinear with antialiasing (it
+antialiases when it downscales) for images, ``nearest-exact`` for the mask,
+sizes ``int(H * s)``. ``make_sharded_extract_fn`` splits a batch over the
+ranks of a ``parallel.data_mesh`` (one process a GPU).
 """
 
 from __future__ import annotations
@@ -71,6 +71,29 @@ def make_extract_fn(module, scales: Sequence[float] = DEFAULT_SCALES):
     return fn
 
 
+def make_sharded_extract_fn(module, mesh, scales: Sequence[float] = DEFAULT_SCALES,
+                            axis: str = "data"):
+    """``make_extract_fn`` with the batch split over ``mesh``'s ``axis``:
+    every rank calls ``fn(images, mask)`` on the same whole batch (a tensor
+    or a ``parallel.shard_batch`` result), runs its own block of rows and
+    gets back the whole ``(B, D)`` f32 result, in row order (an
+    all-gather). A batch whose rows do not divide the mesh raises
+    ``ValueError``; pad it (``extract_vectors(pad_batches=True)``)."""
+    from ..parallel.mesh import gather_rows, local_rows, mesh_size
+
+    mesh_size(mesh, axis)
+    scales = tuple(scales)
+
+    def fn(images: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        x, _ = local_rows(images, mesh, axis)
+        m = None if mask is None else local_rows(mask, mesh, axis)[0]
+        with torch.inference_mode():
+            v = multiscale_descriptor(module, x, m, scales=scales).float()
+            return gather_rows(v, mesh, axis)
+
+    return fn
+
+
 def extract_vectors(
     model,
     paths,
@@ -79,6 +102,7 @@ def extract_vectors(
     scales: Sequence[float] = (1.0,),
     batch_size: int = 16,
     extract_fn=None,
+    pad_batches: bool = False,
     loader: str = "pil",
 ) -> np.ndarray:
     """Paths -> ``(N, D)`` f32 descriptors: test-mode load (bbx crop +
@@ -87,6 +111,10 @@ def extract_vectors(
 
     ``extract_fn``: a ``make_extract_fn`` function to run instead of a fresh
     one (the trainer's mining and ``cli.extract_1m`` build theirs once).
+    ``pad_batches`` fills a short batch up to ``batch_size`` with all-masked
+    zero canvases, whose rows are dropped (a sharded ``extract_fn`` needs
+    rows that divide the mesh; every operation of the model works on one
+    row, so the padding touches no real row).
     ``loader="native"`` decodes each chunk of ``4 * batch_size`` paths
     through the threaded libjpeg loader (``data.load_test_images_native``);
     bbx crops always go through PIL (the crop needs the full-resolution
@@ -113,9 +141,14 @@ def extract_vectors(
     fn = extract_fn or make_extract_fn(model.module, scales=scales)
     out = np.zeros((len(paths), model.outputdim), np.float32)
     for batch in bucket_batches(source, batch_size):
-        vecs = fn(torch.from_numpy(batch.images).to(device),
-                  torch.from_numpy(batch.mask).to(device))
-        out[batch.indices] = vecs.cpu().numpy()
+        images, mask = batch.images, batch.mask
+        n_real = images.shape[0]
+        if pad_batches and n_real < batch_size:
+            pad = batch_size - n_real
+            images = np.concatenate([images, np.zeros((pad,) + images.shape[1:], images.dtype)])
+            mask = np.concatenate([mask, np.zeros((pad,) + mask.shape[1:], bool)])
+        vecs = fn(torch.from_numpy(images).to(device), torch.from_numpy(mask).to(device))
+        out[batch.indices] = vecs[:n_real].cpu().numpy()
     return out
 
 

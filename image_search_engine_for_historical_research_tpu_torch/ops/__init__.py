@@ -14,7 +14,7 @@ from .int8 import int8_topk, int8_topk_rerank, quantize_rows_int8
 from .losses import contrastive_loss, sos_loss, triplet_loss
 from .normalization import l2n, powerlaw
 from .pooling import gem, mac, rmac, roipool, spoc
-from .sift import sift_extract_batch, sift_program
+from .sift import make_sharded_sift_fn, sift_extract_batch, sift_program
 from .topk import exact_ranks, exact_scores, exact_topk, streaming_exact_topk
 from .whiten import pcawhitenlearn, whitenapply, whitenlearn
 
@@ -25,5 +25,5 @@ __all__ = [
     "pcawhitenlearn", "whitenapply", "whitenlearn",
     "exact_ranks", "exact_scores", "exact_topk", "streaming_exact_topk",
     "int8_topk", "int8_topk_rerank", "quantize_rows_int8",
-    "sift_extract_batch", "sift_program",
+    "make_sharded_sift_fn", "sift_extract_batch", "sift_program",
 ]

@@ -4,9 +4,9 @@ Port of ``image_search_engine_for_historical_research_tpu/ops/sift.py``
 (:39-480): Lowe's constants, ``_gauss_kernel1d``, ``_blur``,
 ``gaussian_octave``, ``_shift2d``, ``dog_keypoint_scores``,
 ``_extract_patches``, ``_orientation``, ``_descriptor``,
-``_octave_keypoints``, ``default_budgets``, ``sift_program`` and
-``sift_extract_batch``. ``make_sharded_sift_fn`` waits for the multi-GPU
-item of the ROADMAP.
+``_octave_keypoints``, ``default_budgets``, ``sift_program``,
+``make_sharded_sift_fn`` (the batch split over a ``parallel.data_mesh``)
+and ``sift_extract_batch``.
 
 A batch of images runs the Gaussian / DoG pyramid, extrema detection,
 orientation assignment and descriptor pooling as one sequence of tensor ops
@@ -39,7 +39,7 @@ What the translation keeps from JAX:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -439,6 +439,31 @@ def sift_program(images: torch.Tensor, n_octaves: int, budgets: Tuple[int, ...])
     cat["angle"] = torch.where(v, cat["angle"], torch.zeros_like(cat["angle"]))
     cat["desc"] = torch.where(v[..., None], cat["desc"], torch.zeros_like(cat["desc"]))
     return cat
+
+
+def make_sharded_sift_fn(mesh, hw: Optional[Tuple[int, int]] = None, max_kpts: int = 1024,
+                         n_octaves: int = 4, axis: str = "data"):
+    """``sift_program`` with the image batch split over ``mesh``'s ``axis``:
+    every rank calls ``fn(images (B, H, W))`` on the same whole batch (a
+    tensor or a ``parallel.shard_batch`` result), runs the pyramid and the
+    keypoints of its own block of images and gets back every field of the
+    whole batch (one all-gather a field; the images need nothing from each
+    other). The batch must divide the mesh; ``hw``, when given, must be the
+    images' ``(H, W)`` (``ValueError`` otherwise)."""
+    from ..parallel.mesh import gather_rows, local_rows, mesh_size
+
+    mesh_size(mesh, axis)
+    budgets = default_budgets(max_kpts, n_octaves)
+
+    def fn(images):
+        if hw is not None and tuple(images.shape[1:3]) != tuple(hw):
+            raise ValueError(f"sharded SIFT fn built for hw={tuple(hw)}, got batch "
+                             f"{tuple(images.shape)}")
+        local, _ = local_rows(images, mesh, axis)
+        out = sift_program(local, n_octaves, budgets)
+        return {k: gather_rows(v, mesh, axis) for k, v in out.items()}
+
+    return fn
 
 
 def sift_extract_batch(images, max_kpts: int = 1024, n_octaves: int = 4, device="cuda"):

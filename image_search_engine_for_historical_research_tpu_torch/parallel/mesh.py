@@ -14,6 +14,10 @@ tensor, of which each rank uses its own contiguous row block
 (``local_rows``), or as the result of ``shard_batch``. Rows must divide the
 mesh, as in the JAX package.
 
+The batch-sharded steps (extraction, SIFT, the train steps) keep the same
+contract: each rank runs its own rows, then ``gather_rows`` or
+``all_reduce_flat`` hands every rank the whole result.
+
 Collectives are NCCL on the card and gloo on the CPU (the tests). Nothing
 falls back: without NCCL a card mesh raises.
 """
@@ -126,3 +130,19 @@ def gather_rows(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data", dim: int 
     parts = [torch.empty_like(x) for _ in range(mesh_size(mesh, axis))]
     dist.all_gather(parts, x, group=mesh.get_group(axis))
     return torch.cat(parts, dim)
+
+
+def all_reduce_flat(tensors, mesh: DeviceMesh, axis: str = "data", mean: bool = False) -> None:
+    """Sum each of ``tensors`` over ``axis`` in place (the mean with
+    ``mean``), as one collective over one flat buffer rather than one a
+    tensor. Every rank must pass the same shapes in the same order."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.get_group(axis))
+    if mean:
+        flat /= mesh_size(mesh, axis)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()

@@ -6,6 +6,7 @@ from .step import (
     TrainState,
     apply_gradients,
     init_train_state,
+    make_grad_fn,
     make_loss_fn,
     make_train_step,
 )
@@ -29,7 +30,8 @@ from .tuples import (
 
 __all__ = [
     "FROZEN_PREFIXES", "make_optimizer", "param_labels",
-    "TrainState", "apply_gradients", "init_train_state", "make_loss_fn", "make_train_step",
+    "TrainState", "apply_gradients", "init_train_state", "make_grad_fn", "make_loss_fn",
+    "make_train_step",
     "EpochMetrics", "TrainConfig", "Trainer", "make_retrieval_eval",
     "TupleSpec", "TuplesDataset", "batch_tuples", "tuples_from_db_pickle",
     "tuples_from_folders", "whiten_db_from_pickle",

@@ -1,14 +1,14 @@
 """LoFTR training: homography-supervised coarse focal and fine l2 losses.
 
-Port of ``image_search_engine_for_historical_research_tpu/train/loftr.py``
-without ``mesh=`` (multi-GPU, ROADMAP section 1, item 5). Each pair is an
-image and its warp by a known homography, so the ground-truth coarse cell
-correspondences are exact. The coarse loss is the dual-softmax focal loss
-over the (L, L) confidence matrix, the fine loss the l2 between the refined
-matches and the homography's targets within the fine window. AdamW runs
-with optax's ``warmup_exponential_decay_schedule`` reproduced step for step
-(``loftr_schedule``). The frozen BN statistics are buffers of
-``FrozenBatchNorm2d`` and never change.
+Port of ``image_search_engine_for_historical_research_tpu/train/loftr.py``.
+Each pair is an image and its warp by a known homography, so the
+ground-truth coarse cell correspondences are exact. The coarse loss is the
+dual-softmax focal loss over the (L, L) confidence matrix, the fine loss
+the l2 between the refined matches and the homography's targets within the
+fine window. AdamW runs with optax's ``warmup_exponential_decay_schedule``
+reproduced step for step (``loftr_schedule``). The frozen BN statistics are
+buffers of ``FrozenBatchNorm2d`` and never change. ``mesh=`` splits the
+pairs over the ranks of a ``parallel.data_mesh``.
 """
 
 from __future__ import annotations
@@ -199,22 +199,40 @@ def make_loftr_loss_fn(module, fine_weight: float = 1.0, compute_dtype=None):
 
 
 def make_loftr_train_step(fine_weight: float = 1.0, compute_dtype=None,
-                          accum: Optional[int] = None):
+                          accum: Optional[int] = None, mesh=None, batch_axis: str = "data"):
     """``step(state, imgs (B, H, W, 1), Hmats (B, 3, 3)) -> (state, loss)``:
     one optimizer step of ``state.module`` (``module.config.remat``
     recomputes each encoder layer in the backward). ``accum=k`` runs the
     batch as micro-batches of k pairs and steps with the mean of their
     gradients (a batch that k does not divide raises). The gradients stay in
-    ``.grad`` after the step."""
+    ``.grad`` after the step.
+
+    With ``mesh``, every rank calls ``step`` on the same whole batch
+    (tensors or ``parallel.shard_batch`` results) and runs its own ``B /
+    world`` pairs, in micro-batches of ``accum`` pairs on each rank (so
+    ``accum`` must divide ``B / world``: the peak stays at ``accum`` pairs a
+    card); the mean of the ranks' gradients and losses (one all-reduce) is
+    the whole batch's, and every rank takes the same optimizer step."""
+    world = 1
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce_flat, local_rows, mesh_size
+
+        world = mesh_size(mesh, batch_axis)
 
     def step(state: LoFTRTrainState, imgs, Hmats):
         module = state.module
         dev = next(module.parameters()).device
+        if mesh is not None:
+            imgs = local_rows(imgs, mesh, batch_axis)[0]
+            Hmats = local_rows(Hmats, mesh, batch_axis)[0]
         imgs = torch.as_tensor(imgs, device=dev)
         Hmats = torch.as_tensor(Hmats, device=dev)
         loss_fn = make_loftr_loss_fn(module, fine_weight, compute_dtype)
         B = imgs.shape[0]
         if accum and B % accum:
+            if mesh is not None:
+                raise ValueError(f"batch {B * world} over {world} ranks is {B} pairs a rank, "
+                                 f"not divisible by accum={accum}")
             raise ValueError(f"batch {B} not divisible by accum={accum}")
         k = accum or B
         nb = B // k
@@ -225,13 +243,16 @@ def make_loftr_train_step(fine_weight: float = 1.0, compute_dtype=None,
                 micro = loss_fn(imgs[i * k:(i + 1) * k], Hmats[i * k:(i + 1) * k])
                 micro.backward()
                 total = total + micro.detach()
+            grads = [p.grad for p in module.parameters() if p.grad is not None]
             if nb > 1:
-                for p in module.parameters():
-                    if p.grad is not None:
-                        p.grad /= nb
+                for g in grads:
+                    g /= nb
+            loss = total / nb
+            if mesh is not None:
+                all_reduce_flat(grads + [loss], mesh, batch_axis, mean=True)
             state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return state, total / nb
+        return state, loss
 
     return step

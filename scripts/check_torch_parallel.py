@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The PyTorch port's sharded builds across several processes, each against
-the unsharded build on its own device.
+"""The PyTorch port's sharded builds and batch-sharded steps across several
+processes, each against the unsharded one on its own device.
 
     torchrun --standalone --nproc-per-node 4 scripts/check_torch_parallel.py
     torchrun --standalone --nproc-per-node 4 scripts/check_torch_parallel.py \\
-        --device cpu --rows 4096 --fit-rows 2048 --diffusion-rows 1024 --dim 64
+        --device cpu --rows 4096 --fit-rows 2048 --diffusion-rows 1024 --dim 64 \\
+        --small-steps
 
 Every rank joins the launcher's group through ``parallel.data_mesh`` (NCCL on
 ``cuda``, one card a rank; gloo on ``cpu``), makes the same clustered unit
@@ -29,6 +30,31 @@ unsharded on its own device, then with ``mesh=``. Checked:
   rows, scores within 1e-4 on those;
 - ``build_rpforest`` (100 trees, leaf 512) on ``--fit-rows`` rows: every
   array identical (each tree is built whole on one rank).
+
+Then the batch-sharded steps (``STEPS``; ``--small-steps`` shrinks them
+for a rehearsal on the CPU), each from seeded inputs made on the device:
+
+- ``make_sharded_extract_fn``: 64 canvases of 512 px through
+  ResNet101-SOLAR (seeded weights) at the three default scales, within
+  1e-4 of ``make_extract_fn`` (cuDNN may pick other algorithms at another
+  batch size);
+- ``make_sharded_sift_fn``: 32 smooth 1000 x 1000 images (1,024
+  keypoints, 4 octaves) against ``sift_program`` at ``chip_smoke.py``'s
+  card-against-CPU limits (``sift_agreement``: at least 99% of the
+  keypoints within 1e-2 px with descriptors within 1e-3);
+- ``make_train_step(mesh=)``: ResNet101-SOLAR unfrozen, contrastive +
+  0.1 SOS, 8 tuples of S=4 at 362 px: the loss within rtol 1e-5 of the
+  unsharded step's; every gradient leaf within ``1e-4 * max|g|`` (JAX's
+  limit, ``tests/test_parallel.py``) of the same split run on one device
+  (each rank's block forwarded alone, one backward), and no farther from
+  the unsharded step's than that split is, plus the same limit (cuDNN
+  rounds another batch size otherwise, and random weights amplify it);
+  the parameters after one AdamW step the same on every rank;
+- ``make_loftr_train_step(mesh=)``: the default config at 480 x 640, 4
+  pairs: the loss within rel 1e-4.
+
+Each step is timed sharded and unsharded (host clock around synchronized
+calls, the median of 3 after a warm-up).
 
 Rank 0 prints each build's seconds unsharded and sharded (host clock around
 synchronized builds, each run once after one warm-up build of the kNN
@@ -76,6 +102,15 @@ from image_search_engine_for_historical_research_tpu_torch.rerank import (  # no
 )
 
 Q = 70
+# the step checks' sizes; ``--small-steps`` for a rehearsal on the CPU
+STEPS = {"arch": "resnet101", "extract_images": 64, "extract_px": 512, "sift_images": 32,
+         "sift_px": 1000, "sift_kpts": 1024, "sift_octaves": 4, "tuples": 8, "train_px": 362,
+         "loftr_pairs": 4, "loftr_hw": (480, 640), "loftr_config": {}}
+SMALL_STEPS = {"arch": "resnet50", "extract_images": 8, "extract_px": 64, "sift_images": 8,
+               "sift_px": 128, "sift_kpts": 128, "sift_octaves": 3, "tuples": 4, "train_px": 64,
+               "loftr_pairs": 4, "loftr_hw": (32, 48),
+               "loftr_config": dict(initial_dim=16, block_dims=(16, 24, 32), d_coarse=32,
+                                    d_fine=16, nhead=4, coarse_layers=("self", "cross"))}
 
 
 def card_line():
@@ -127,6 +162,175 @@ def digest(t):
                                                         .sum())]
 
 
+def step_seconds(fn, dev, reps=3):
+    """Median host seconds of ``fn`` over ``reps`` synchronized calls after
+    a warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def smooth_images(n, h, w, dev, seed, channels=None):
+    """``n`` seeded smooth images in [0, 1] made on ``dev``: uniform noise
+    on a 1/8 grid, upsampled bilinearly (``(n, h, w)``, or ``(n, h, w, c)``
+    with ``channels``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    low = torch.rand((n, channels or 1, h // 8, w // 8), generator=g, device=dev)
+    x = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear", align_corners=False)
+    return x.permute(0, 2, 3, 1).contiguous() if channels else x[:, 0].contiguous()
+
+
+def run_steps(steps, mesh, dev, out, checks, digests):
+    """The batch-sharded steps: each against the unsharded function on this
+    rank's device, timed both ways."""
+    from chip_smoke import sift_agreement
+
+    from image_search_engine_for_historical_research_tpu_torch.models import (
+        init_network,
+        loftr,
+        make_extract_fn,
+        make_sharded_extract_fn,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.ops import sift
+    from image_search_engine_for_historical_research_tpu_torch.train import (
+        init_loftr_train_state,
+        init_train_state,
+        make_grad_fn,
+        make_loftr_optimizer,
+        make_loftr_train_step,
+        make_optimizer,
+        make_train_step,
+        random_homography,
+    )
+    from image_search_engine_for_historical_research_tpu_torch.train.step import tuple_loss
+
+    def pair(label, plain, sharded):
+        """Both results, and each one's seconds a call."""
+        res = plain(), sharded()
+        out[f"{label}_unsharded_s"] = step_seconds(plain, dev)
+        out[f"{label}_sharded_s"] = step_seconds(sharded, dev)
+        return res
+
+    net = init_network({"architecture": steps["arch"]}, seed=0, device=dev)
+    px = steps["extract_px"]
+    canvases = smooth_images(steps["extract_images"], px, px, dev, 11, channels=3)
+    mask = torch.ones(canvases.shape[:3], dtype=torch.bool, device=dev)
+    v0, v1 = pair("extract", lambda: make_extract_fn(net.module)(canvases, mask),
+                  lambda: make_sharded_extract_fn(net.module, mesh)(canvases, mask))
+    out["extract_max_abs_diff"] = float((v0 - v1).abs().max())
+    checks["extract_within_1e-4"] = out["extract_max_abs_diff"] <= 1e-4
+    digests["extract"] = digest(v1)
+    del canvases, mask, v0, v1
+
+    imgs = smooth_images(steps["sift_images"], steps["sift_px"], steps["sift_px"], dev, 12)
+    budgets = sift.default_budgets(steps["sift_kpts"], steps["sift_octaves"])
+    f0, f1 = pair("sift", lambda: sift.sift_program(imgs, steps["sift_octaves"], budgets),
+                  lambda: sift.make_sharded_sift_fn(mesh, tuple(imgs.shape[1:]),
+                                                    max_kpts=steps["sift_kpts"],
+                                                    n_octaves=steps["sift_octaves"])(imgs))
+    agree = sift_agreement({k: v.cpu().numpy() for k, v in f1.items()},
+                           {k: v.cpu().numpy() for k, v in f0.items()})
+    out["sift_agreement"] = agree
+    out["sift_fields_identical"] = sorted(k for k in f0 if torch.equal(f0[k], f1[k]))
+    checks["sift_99pct_within_1e-2px"] = agree["matched_share"] >= 0.99
+    digests["sift"] = digest(f1["xy"])
+    del imgs, f0, f1
+
+    module = net.module.requires_grad_(True)
+    S, tuples, px = 4, steps["tuples"], steps["train_px"]
+    # normal noise, as chip_smoke.py's train batches and JAX's parity test:
+    # smooth images give nearly parallel descriptors, whose loss gradient is
+    # a difference of nearly equal terms
+    g = torch.Generator(device=dev).manual_seed(13)
+    images = torch.randn((S * tuples, px, px, 3), generator=g, device=dev)
+    labels = torch.tensor([-1, 1] + [0] * (S - 2), dtype=torch.int32,
+                          device=dev).repeat(tuples)
+    world = mesh.size(0)
+    loss_of = tuple_loss(S, lambda_sos=0.1)
+
+    def blockwise():
+        """The sharded split on this one device: each rank's block of images
+        forwarded alone (the same batch size, so the same cuDNN algorithms,
+        as on its card), one loss and one backward over all of them."""
+        n = images.shape[0] // world
+        value = loss_of(torch.cat([module(images[r * n:(r + 1) * n]) for r in range(world)]),
+                        labels)
+        value.backward()
+        return value.detach()
+
+    grads = {}
+    for label, fn in (("unsharded", make_grad_fn(module, S, lambda_sos=0.1)),
+                      ("blockwise", lambda x, y: blockwise()),
+                      ("sharded", make_grad_fn(module, S, lambda_sos=0.1, mesh=mesh))):
+        module.zero_grad(set_to_none=True)
+        loss = fn(images, labels)
+        grads[label] = (float(loss), {n: p.grad.clone() for n, p in module.named_parameters()})
+
+    def grad_step(m):
+        module.zero_grad(set_to_none=True)
+        make_grad_fn(module, S, lambda_sos=0.1, mesh=m)(images, labels)
+
+    out["solar_grad_unsharded_s"] = step_seconds(lambda: grad_step(None), dev)
+    out["solar_grad_sharded_s"] = step_seconds(lambda: grad_step(mesh), dev)
+    module.zero_grad(set_to_none=True)
+    (l0, g0), (_, gb), (l1, g1) = (grads[k] for k in ("unsharded", "blockwise", "sharded"))
+
+    def gap(a, b, n):
+        return float((a[n] - b[n]).abs().max())
+
+    def limit(n):
+        return max(1e-4 * float(g0[n].abs().max()), 1e-7)
+
+    out["solar_loss"] = [l0, l1]
+    for label, ref in (("unsharded", g0), ("blockwise", gb)):
+        out[f"solar_worst_leaf_vs_{label}_share_of_limit"] = max(
+            gap(g1, ref, n) / limit(n) for n in g0)
+    out["solar_blockwise_vs_unsharded_share_of_limit"] = max(gap(gb, g0, n) / limit(n)
+                                                             for n in g0)
+    checks["solar_loss_rtol_1e-5"] = abs(l1 - l0) <= 1e-5 * abs(l0)
+    # the sharding's own arithmetic: against the same split on one device
+    checks["solar_grads_within_1e-4_max_of_blockwise"] = (
+        out["solar_worst_leaf_vs_blockwise_share_of_limit"] <= 1.0)
+    # against the unsharded step: no farther than the split on one device
+    # is (cuDNN's batch-size-dependent rounding), plus JAX's limit
+    checks["solar_grads_within_split_gap_plus_1e-4_max_of_unsharded"] = all(
+        gap(g1, g0, n) <= gap(gb, g0, n) + limit(n) for n in g0)
+    opt, sched, _ = make_optimizer(module, lr=1e-6, weight_decay=1e-6, exp_decay=0.0,
+                                   freeze_backbone=False)
+    make_train_step(module, S, lambda_sos=0.1, mesh=mesh)(init_train_state(module, opt, sched),
+                                                           images, labels)
+    digests["solar_params_after_step"] = digest(torch.cat([p.detach().reshape(-1)
+                                                           for p in module.parameters()]))
+    del net, module, grads, g0, gb, g1, images, opt, sched
+
+    h, w = steps["loftr_hw"]
+    n = steps["loftr_pairs"]
+    limgs = smooth_images(n, h, w, dev, 14, channels=1)
+    rng = np.random.default_rng(0)
+    Hs = torch.as_tensor(np.stack([random_homography(rng, h, w, jitter=0.1)
+                                   for _ in range(n)]), device=dev)
+    states, losses = {}, {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        matcher = loftr.init_matcher(seed=0, device=dev, **steps["loftr_config"])
+        states[label] = init_loftr_train_state(matcher, *make_loftr_optimizer(matcher))
+        losses[label] = float(make_loftr_train_step(mesh=m)(states[label], limgs, Hs)[1])
+    out["loftr_loss"] = [losses["unsharded"], losses["sharded"]]
+    checks["loftr_loss_rel_1e-4"] = (abs(losses["sharded"] - losses["unsharded"])
+                                     <= 1e-4 * abs(losses["unsharded"]))
+    out["loftr_unsharded_s"] = step_seconds(
+        lambda: make_loftr_train_step()(states["unsharded"], limgs, Hs), dev)
+    out["loftr_sharded_s"] = step_seconds(
+        lambda: make_loftr_train_step(mesh=mesh)(states["sharded"], limgs, Hs), dev)
+    digests["loftr_params_after_steps"] = digest(torch.cat(
+        [p.detach().reshape(-1) for p in states["sharded"].module.parameters()]))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
@@ -134,6 +338,8 @@ def main(argv=None):
     p.add_argument("--fit-rows", type=int, default=65_536)
     p.add_argument("--diffusion-rows", type=int, default=16_384)
     p.add_argument("--dim", type=int, default=2048)
+    p.add_argument("--small-steps", action="store_true",
+                   help="the step checks at the sizes of a CPU rehearsal")
     args = p.parse_args(argv)
 
     mesh = data_mesh(device=args.device)
@@ -232,6 +438,9 @@ def main(argv=None):
         a0, a1 = fo0.to_arrays()[1], fo1.to_arrays()[1]
         checks["rpforest_identical"] = all(np.array_equal(a0[k], a1[k]) for k in a0)
         digests["rpforest"] = digest(fo1.leaf_items)
+        del x, f, fo0, fo1
+
+        run_steps(SMALL_STEPS if args.small_steps else STEPS, mesh, dev, out, checks, digests)
 
         every = [None] * world
         dist.all_gather_object(every, digests)

@@ -64,6 +64,15 @@ mesh = data_mesh(device="cpu")
 _, ids = sharded_exact_topk(torch.from_numpy(rows[:2]), torch.from_numpy(rows), 3, mesh)
 assert ids[:, 0].tolist() == [0, 1]
 build_pq(rows, M=16, Ks=16, iters=2, device="cpu", mesh=mesh)
+from {PKG}.models import make_sharded_extract_fn
+from {PKG}.train import init_train_state, make_optimizer, make_train_step
+v = make_sharded_extract_fn(model.module, mesh, scales=(1.0,))(torch.zeros(2, 64, 64, 3) + 0.5)
+assert v.shape == (2, 2048)
+net = model.module.requires_grad_(True)
+state = init_train_state(net, *make_optimizer(net)[:2])
+_, loss = make_train_step(net, 3, lambda_sos=0.1, mesh=mesh)(
+    state, torch.rand(3, 32, 32, 3), torch.tensor([-1, 1, 0], dtype=torch.int32))
+assert torch.isfinite(loss) and state.step == 1
 dist.destroy_process_group()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "{JAX_PKG}"]

@@ -1,6 +1,6 @@
 """Two faults of the port against the JAX package, repaired and pinned: the
-feature store reads the reference's pickle store, and ``ops`` re-exports
-every name JAX's ``ops`` does."""
+feature store reads the reference's pickle store, and ``ops`` and
+``models`` export every name JAX's ``ops`` and ``models`` do."""
 
 import importlib
 import os
@@ -39,9 +39,9 @@ def test_pickle_store_loads_alike_in_both_packages(tmp_path, layout):
 
 
 def test_ops_exports_every_name_of_jax_ops():
-    """JAX's ``ops.__all__`` but ``make_sharded_sift_fn`` (the batch-sharded
-    SIFT, not ported yet) is a subset of the port's, and every name imports."""
-    missing = set(jops.__all__) - {"make_sharded_sift_fn"} - set(tops.__all__)
+    """JAX's whole ``ops.__all__`` is a subset of the port's, and every
+    name imports."""
+    missing = set(jops.__all__) - set(tops.__all__)
     assert not missing, missing
     for name in tops.__all__:
         assert getattr(importlib.import_module(tops.__name__), name) is not None, name
@@ -50,3 +50,18 @@ def test_ops_exports_every_name_of_jax_ops():
         sos_loss,
         whitenlearn,
     )
+
+
+def test_models_exports_every_name_of_jax_models():
+    """JAX's ``models.__all__`` is a subset of the port's (``FrozenBatchNorm``
+    and ``convert_solar_state_dict`` name the port's ``FrozenBatchNorm2d``
+    and ``to_flax_variables``), and every name imports."""
+    from image_search_engine_for_historical_research_tpu import models as jmodels
+    from image_search_engine_for_historical_research_tpu_torch import models as tmodels
+
+    missing = set(jmodels.__all__) - set(tmodels.__all__)
+    assert not missing, missing
+    for name in tmodels.__all__:
+        assert getattr(tmodels, name) is not None, name
+    assert tmodels.FrozenBatchNorm is tmodels.FrozenBatchNorm2d
+    assert tmodels.convert_solar_state_dict is tmodels.to_flax_variables
