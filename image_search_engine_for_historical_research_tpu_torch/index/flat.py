@@ -25,6 +25,7 @@ import torch
 from ..device import resolve_device
 from ..ops.int8 import QUANT_CHUNK, _iter_blocks, int8_topk, int8_topk_rerank, quantize_rows_int8
 from ..ops.topk import exact_topk
+from ..utils import tracing
 from .base import normalize_rows, register
 
 
@@ -46,16 +47,18 @@ class FlatIndex:
     def search(self, queries, k: int, chunk: int = 262144,
                approximate: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-``k`` ``(scores, ids)``. ``approximate`` is accepted for the
-        JAX signature; the scan is exact on every device (``exact_topk``)."""
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        if self.metric == "cosine":
-            q = normalize_rows(q)
-            metric = "ip"
-        else:
-            metric = "l2"
-        matmul_dtype = torch.bfloat16 if self.storage_dtype == "bfloat16" else None
-        return exact_topk(q, self.vectors, k, metric=metric, chunk=chunk,
-                          matmul_dtype=matmul_dtype, approximate=approximate)
+        JAX signature; the scan is exact on every device (``exact_topk``).
+        The device span ``index.flat.search``."""
+        with tracing.span("index.flat.search", device=self.device):
+            q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+            if self.metric == "cosine":
+                q = normalize_rows(q)
+                metric = "ip"
+            else:
+                metric = "l2"
+            matmul_dtype = torch.bfloat16 if self.storage_dtype == "bfloat16" else None
+            return exact_topk(q, self.vectors, k, metric=metric, chunk=chunk,
+                              matmul_dtype=matmul_dtype, approximate=approximate)
 
     def to_arrays(self):
         meta = {"metric": self.metric, "storage_dtype": self.storage_dtype}

@@ -4,7 +4,8 @@ Port of ``image_search_engine_for_historical_research_tpu/models/extract.py``.
 Resizes match ``jax.image.resize``: bilinear with antialiasing (it
 antialiases when it downscales) for images, ``nearest-exact`` for the mask,
 sizes ``int(H * s)``. ``make_sharded_extract_fn`` splits a batch over the
-ranks of a ``parallel.data_mesh`` (one process a GPU).
+ranks of a ``parallel.data_mesh`` (one process a GPU). Each scale's forward
+is the device span ``extract.scale_{s:.2f}`` (``utils.tracing``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.normalization import l2n
+from ..utils import tracing
 
 DEFAULT_SCALES = (1.0, 2 ** 0.5, 0.5 ** 0.5)
 
@@ -52,7 +54,8 @@ def multiscale_descriptor(
         ms = None
         if mask is not None:
             ms = mask if s == 1.0 else _resize_mask(mask, s)
-        v = module(xs, ms).float()        # (B, D), already l2n'd
+        with tracing.span(f"extract.scale_{s:.2f}", device=images.device):
+            v = module(xs, ms).float()    # (B, D), already l2n'd
         acc = v if acc is None else acc + v
     return l2n(acc / len(scales), eps=0.0)
 

@@ -29,6 +29,11 @@ The count drivers run only what a match count needs (the backbone's coarse
 path, the coarse transformer and the selection): XLA drops the fine stage
 and the FPN's top-down path from JAX's count functions as dead code, and the
 port does not run them either.
+
+``LoFTRMatcher.forward`` runs in the device spans ``loftr.backbone``,
+``loftr.coarse_transformer`` (the positional encoding and the coarse
+layers), ``loftr.select`` (the dual softmax through the keypoints) and,
+with ``fine=True``, ``loftr.fine`` (``utils.tracing``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.topk import _full_f32, _top_exact
+from ..utils import tracing
 from . import resnet
 from .resnet import Conv2d
 from .retrieval import init_weights
@@ -323,44 +329,51 @@ class LoFTRMatcher(nn.Module):
         ``kpts1`` are then the coarse cell positions."""
         cfg = self.config
         B, H, W = img0.shape[:3]
+        dev = img0.device
         imgs = torch.cat([img0, img1]).permute(0, 3, 1, 2)
-        feats_c, feats_f = self.backbone(imgs, fine=fine)
+        with tracing.span("loftr.backbone", device=dev):
+            feats_c, feats_f = self.backbone(imgs, fine=fine)
         Hc, Wc = feats_c.shape[2:]
         L, d = Hc * Wc, cfg.d_coarse
-        t = (feats_c.permute(0, 2, 3, 1) + self._pos(Hc, Wc, d, feats_c)).reshape(2 * B, L, d)
-        t0, t1 = self.loftr_coarse(t[:B], t[B:], remat=cfg.remat)
+        with tracing.span("loftr.coarse_transformer", device=dev):
+            t = (feats_c.permute(0, 2, 3, 1)
+                 + self._pos(Hc, Wc, d, feats_c)).reshape(2 * B, L, d)
+            t0, t1 = self.loftr_coarse(t[:B], t[B:], remat=cfg.remat)
 
-        # dual softmax over (B, L, S): axis 1 and axis 2 as in JAX's (1, L, S)
-        sim = _f32_einsum("blc,bsc->bls", t0 / d ** 0.5, t1 / d ** 0.5) / cfg.temperature
-        conf_mat = F.softmax(sim, dim=1) * F.softmax(sim, dim=2)
-        del sim
+        with tracing.span("loftr.select", device=dev):
+            # dual softmax over (B, L, S): axis 1 and axis 2 as in JAX's (1, L, S)
+            sim = _f32_einsum("blc,bsc->bls", t0 / d ** 0.5, t1 / d ** 0.5) / cfg.temperature
+            conf_mat = F.softmax(sim, dim=1) * F.softmax(sim, dim=2)
+            del sim
 
-        keep = conf_mat > cfg.thr
-        b = cfg.border_rm
-        if b > 0:
-            ok = torch.zeros((Hc, Wc), dtype=torch.bool, device=keep.device)
-            ok[b:-b, b:-b] = True
-            ok = ok.reshape(L)
-            keep &= ok[:, None] & ok[None, :]
-        keep &= conf_mat == conf_mat.amax(2, keepdim=True)
-        keep &= conf_mat == conf_mat.amax(1, keepdim=True)
-        j_ids = torch.where(keep, conf_mat, -1.0).argmax(2)          # first maximum
-        row_conf = torch.where(keep.any(2), conf_mat.gather(2, j_ids[..., None])[..., 0], 0.0)
-        del keep
-        top_conf, top_i = _top_exact(row_conf, min(cfg.max_matches, L))
-        top_j = j_ids.gather(1, top_i)
+            keep = conf_mat > cfg.thr
+            b = cfg.border_rm
+            if b > 0:
+                ok = torch.zeros((Hc, Wc), dtype=torch.bool, device=keep.device)
+                ok[b:-b, b:-b] = True
+                ok = ok.reshape(L)
+                keep &= ok[:, None] & ok[None, :]
+            keep &= conf_mat == conf_mat.amax(2, keepdim=True)
+            keep &= conf_mat == conf_mat.amax(1, keepdim=True)
+            j_ids = torch.where(keep, conf_mat, -1.0).argmax(2)          # first maximum
+            row_conf = torch.where(keep.any(2), conf_mat.gather(2, j_ids[..., None])[..., 0],
+                                   0.0)
+            del keep
+            top_conf, top_i = _top_exact(row_conf, min(cfg.max_matches, L))
+            top_j = j_ids.gather(1, top_i)
 
-        scale_c = H // Hc
+            scale_c = H // Hc
 
-        def xy(ids):
-            return torch.stack([(ids % Wc).to(torch.float32) * scale_c,
-                                (ids // Wc).to(torch.float32) * scale_c], dim=-1)
+            def xy(ids):
+                return torch.stack([(ids % Wc).to(torch.float32) * scale_c,
+                                    (ids // Wc).to(torch.float32) * scale_c], dim=-1)
 
-        kpts0, kpts1_c = xy(top_i), xy(top_j)
+            kpts0, kpts1_c = xy(top_i), xy(top_j)
         if not fine:
             res = MatchResult(kpts0, kpts1_c, top_conf)
             return (res, conf_mat) if return_conf else res
-        kpts1 = kpts1_c + self._refine(feats_f, t0, t1, top_i, top_j, Hc, Wc, H)
+        with tracing.span("loftr.fine", device=dev):
+            kpts1 = kpts1_c + self._refine(feats_f, t0, t1, top_i, top_j, Hc, Wc, H)
         res = MatchResult(kpts0, kpts1, top_conf)
         return (res, conf_mat) if return_conf else res
 

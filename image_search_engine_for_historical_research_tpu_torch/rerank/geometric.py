@@ -30,6 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.topk import _full_f32, _top_exact
+from ..utils import tracing
 
 MAX_KPTS = 1024  # fixed keypoint budget per image (static shapes)
 DEVICE_BACKENDS = ("device", "tpu")
@@ -453,19 +454,29 @@ def loftr_rerank(
       uploaded a block at a time; the counts are read back once, at the end;
     - ``match_fn`` (``make_match_fn``): one pair at a time, each count read
       back before the next pair.
-    """
-    import cv2
 
+    Spans (``utils.tracing``): ``verify.rerank`` the call, ``verify.load``
+    each image's read and resize, ``verify.readback`` the counts' read-back.
+    """
     if sum(f is not None for f in (match_fn, count_fn, banked_count_fn)) != 1:
         raise ValueError("pass exactly one of match_fn / count_fn / banked_count_fn")
+    with tracing.span("verify.rerank"):
+        return _loftr_rerank(query_paths, db_paths, ranks, match_fn, b, resolution, count_fn,
+                             pair_batch, banked_count_fn)
+
+
+def _loftr_rerank(query_paths, db_paths, ranks, match_fn, b, resolution, count_fn, pair_batch,
+                  banked_count_fn):
+    import cv2
 
     w, h = resolution
 
     def load(path):
-        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(path)
-        img = cv2.resize(img, (w, h)).astype(np.float32) / 255.0
+        with tracing.span("verify.load"):
+            img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+            if img is None:
+                raise FileNotFoundError(path)
+            img = cv2.resize(img, (w, h)).astype(np.float32) / 255.0
         return img[:, :, None]
 
     ranks = np.asarray(ranks)
@@ -486,7 +497,8 @@ def loftr_rerank(
         iq = np.array([uniq[q] for q, _ in pairs] + [uniq[pairs[-1][0]]] * pad, np.int64)
         ic = np.array([uniq[c] for _, c in pairs] + [uniq[pairs[-1][1]]] * pad, np.int64)
         out = banked_count_fn(bank, iq.reshape(nb, pair_batch), ic.reshape(nb, pair_batch))
-        counts = out.reshape(-1)[:P].cpu().numpy().astype(np.int64).reshape(Q, b)
+        with tracing.span("verify.readback"):
+            counts = out.reshape(-1)[:P].cpu().numpy().astype(np.int64).reshape(Q, b)
         return rerank_by_inliers(ranks, counts, b)
 
     if count_fn is not None:
@@ -504,7 +516,8 @@ def loftr_rerank(
             chunk = chunk + [chunk[-1]] * (pair_batch - n)    # pad to the block's shape
             outs.append(count_fn(np.stack([cached(q) for q, _ in chunk]),
                                  np.stack([cached(c) for _, c in chunk]))[:n])
-        counts = torch.cat(outs).cpu().numpy().astype(np.int64).reshape(Q, b)
+        with tracing.span("verify.readback"):
+            counts = torch.cat(outs).cpu().numpy().astype(np.int64).reshape(Q, b)
         return rerank_by_inliers(ranks, counts, b)
 
     counts = np.zeros((Q, b), np.int64)

@@ -16,6 +16,7 @@ import torch
 
 from ..ops.normalization import l2n
 from ..ops.topk import _matmul_f32, _top, exact_scores
+from ..utils import tracing
 
 
 def _rank_weights(k: int, w: float, device) -> torch.Tensor:
@@ -49,11 +50,13 @@ def feature_enhancement(
 
 def qge1(ranks, qvecs, vecs, k: int = 3, w: float = 4.0, out_k: Optional[int] = None):
     """One enhancement iteration (the serving path). ``out_k`` returns only
-    the top-``out_k`` re-ranked ids instead of the full permutation."""
-    if out_k is None:
-        _, r = feature_enhancement(qvecs, vecs, ranks, k=k, w=w, iterations=1)
-        return r
-    return _qge1_topk(ranks, qvecs, vecs, k, w, out_k)
+    the top-``out_k`` re-ranked ids instead of the full permutation. The
+    device span ``rerank.qge1``."""
+    with tracing.span("rerank.qge1", device=vecs.device):
+        if out_k is None:
+            _, r = feature_enhancement(qvecs, vecs, ranks, k=k, w=w, iterations=1)
+            return r
+        return _qge1_topk(ranks, qvecs, vecs, k, w, out_k)
 
 
 def _qge1_topk(ranks, qvecs, vecs, k: int, w: float, out_k: int) -> torch.Tensor:

@@ -9,7 +9,9 @@ the index, re-rank (one qge1 iteration, or diffusion against a prebuilt
 uint8 canvas and normalizes it and builds the mask on the device; request
 coalescing in front of it is ``serving.batching.CoalescingService``. The
 batched path decodes with PIL on a thread pool or, with ``loader="native"``,
-with the threaded libjpeg loader.
+with the threaded libjpeg loader. The timing dicts' stage seconds are the
+``.seconds`` of the spans ``serve.decode``, ``serve.extract``,
+``serve.search`` and ``serve.rerank`` (``utils.tracing``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from email.parser import BytesParser
 from email.policy import default as email_policy
@@ -36,6 +37,7 @@ from ..device import resolve_device
 from ..models.extract import extract_vectors_single, make_extract_fn
 from ..ops.topk import _top_exact
 from ..rerank.qe import qge1
+from ..utils import tracing
 
 
 def _diffusion_shortlist_scores(ids3, qvec, vecs_dev, off_ids, off_scores):
@@ -181,20 +183,20 @@ class SearchService:
 
     def query_image(self, image_path: str) -> Tuple[List[dict], dict]:
         """Full serving path for one image; returns (results, timing)."""
-        t0 = time.perf_counter()
-        qvec = extract_vectors_single(self.model, image_path, self.image_size,
-                                      scales=self.scales)
-        t1 = time.perf_counter()
-        _, idx = self.index.search(qvec[None, :], self.K)
-        idx = idx.cpu().numpy()
-        t2 = time.perf_counter()
-        final = self._rerank(idx, torch.as_tensor(qvec[None, :], device=self.device))[0]
-        t3 = time.perf_counter()
+        with tracing.span("serve.extract") as extract:
+            qvec = extract_vectors_single(self.model, image_path, self.image_size,
+                                          scales=self.scales)
+        with tracing.span("serve.search") as search:
+            _, idx = self.index.search(qvec[None, :], self.K)
+            idx = idx.cpu().numpy()
+        with tracing.span("serve.rerank") as rerank:
+            final = self._rerank(idx, torch.as_tensor(qvec[None, :], device=self.device))[0]
         results = [
             {"rank": r, "path": self.paths[i], "id": int(i)}
             for r, i in enumerate(final[: self.K])
         ]
-        timing = {"extract_s": t1 - t0, "search_s": t2 - t1, "rerank_s": t3 - t2}
+        timing = {"extract_s": extract.seconds, "search_s": search.seconds,
+                  "rerank_s": rerank.seconds}
         return results, timing
 
     def query_batch(self, image_paths: Sequence[str]):
@@ -212,26 +214,26 @@ class SearchService:
         if B == 0:
             return None
         slot = next((s for s in self.BATCH_SLOTS if s >= B), B)
-        t0 = time.perf_counter()
-        side = ((self.image_size + 31) // 32) * 32
-        images = np.zeros((slot, side, side, 3), np.uint8)
-        hw = np.zeros((slot, 2), np.int64)
-        if self.loader == "native":
-            arrays = load_test_images_native(image_paths, self.image_size, threads=8,
-                                             raw=True)
-        else:
-            arrays = list(self._load_pool.map(
-                lambda p: load_test_image(p, self.image_size, raw=True), image_paths
-            ))
-        for b, arr in enumerate(arrays):
-            h, w = arr.shape[:2]
-            images[b, :h, :w] = arr
-            hw[b] = (h, w)
-        for b in range(B, slot):
-            images[b] = images[0]
-            hw[b] = hw[0]
+        with tracing.span("serve.decode") as decode:
+            side = ((self.image_size + 31) // 32) * 32
+            images = np.zeros((slot, side, side, 3), np.uint8)
+            hw = np.zeros((slot, 2), np.int64)
+            if self.loader == "native":
+                arrays = load_test_images_native(image_paths, self.image_size, threads=8,
+                                                 raw=True)
+            else:
+                arrays = list(self._load_pool.map(
+                    lambda p: load_test_image(p, self.image_size, raw=True), image_paths
+                ))
+            for b, arr in enumerate(arrays):
+                h, w = arr.shape[:2]
+                images[b, :h, :w] = arr
+                hw[b] = (h, w)
+            for b in range(B, slot):
+                images[b] = images[0]
+                hw[b] = hw[0]
         return {"images": images, "hw": hw, "B": B, "slot": slot,
-                "prepare_s": time.perf_counter() - t0}
+                "prepare_s": decode.seconds}
 
     def _extract_u8(self, u8: torch.Tensor, hw: torch.Tensor) -> torch.Tensor:
         """Normalize a raw uint8 canvas and build its validity mask on the
@@ -249,23 +251,22 @@ class SearchService:
         if prepared is None:
             return []
         B, slot = prepared["B"], prepared["slot"]
-        t0 = time.perf_counter()
-        qvecs = self._extract_u8(
-            torch.from_numpy(prepared["images"]).to(self.device),
-            torch.from_numpy(prepared["hw"]).to(self.device),
-        )
-        self._sync()
-        t1 = time.perf_counter()
-        _, idx = self.index.search(qvecs, self.K)
-        idx = idx.cpu().numpy()
-        t2 = time.perf_counter()
-        final = self._rerank(idx, qvecs)
-        t3 = time.perf_counter()
+        with tracing.span("serve.extract") as extract:
+            qvecs = self._extract_u8(
+                torch.from_numpy(prepared["images"]).to(self.device),
+                torch.from_numpy(prepared["hw"]).to(self.device),
+            )
+            self._sync()
+        with tracing.span("serve.search") as search:
+            _, idx = self.index.search(qvecs, self.K)
+            idx = idx.cpu().numpy()
+        with tracing.span("serve.rerank") as rerank:
+            final = self._rerank(idx, qvecs)
         timing = {
             "prepare_s": prepared["prepare_s"],
-            "extract_s": t1 - t0,
-            "search_s": t2 - t1,
-            "rerank_s": t3 - t2,
+            "extract_s": extract.seconds,
+            "search_s": search.seconds,
+            "rerank_s": rerank.seconds,
             "batch": B,
             "slot": slot,
         }

@@ -1,7 +1,7 @@
 """Request coalescing (micro-batching) for the online service.
 
 Port of ``image_search_engine_for_historical_research_tpu/serving/batching.py``
-(all of it; pure Python, no torch). ``CoalescingService`` wraps a
+(all of it; pure Python, plus the spans below). ``CoalescingService`` wraps a
 ``SearchService`` with a two-stage pipeline:
 
   requests -> [collector thread: drain <= max_batch, host decode/pack
@@ -15,24 +15,35 @@ the previous one runs; a lone request still goes at once after at most
 ``max_wait_ms``. It has ``query_image`` like the service, so
 ``make_wsgi_app`` serves it unchanged; pair it with ``serve(...,
 threaded=True)`` so concurrent HTTP requests reach the queue together.
+
+Spans (``utils.tracing``): ``serve.queue`` (each request, enqueued to
+drained), ``serve.coalesce`` (the drain waiting for a batch to fill),
+``serve.handoff`` (the collector blocked on the full hand-off),
+``serve.device_wait`` (the device thread waiting for a batch),
+``serve.batch`` (one batch's ``execute_batch``) and ``serve.reply``.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
 from typing import Optional
 
+from ..utils import tracing
+
 
 class _Pending:
-    __slots__ = ("path", "event", "result", "error")
+    __slots__ = ("id", "path", "event", "result", "error", "enqueued_ns")
 
-    def __init__(self, path: str):
+    def __init__(self, id: int, path: str):
+        self.id = id
         self.path = path
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        self.enqueued_ns = time.time_ns()
 
 
 def _fail(batch, err):
@@ -65,6 +76,7 @@ class CoalescingService:
         self._lock = threading.Condition()
         self._queue: list[_Pending] = []
         self._closed = False
+        self._ids = itertools.count()
         self.requests_served = 0
         self.batches_run = 0
         self._handoff: "queue.Queue" = queue.Queue(maxsize=1)
@@ -87,7 +99,7 @@ class CoalescingService:
         return getattr(self._svc, name)
 
     def query_image(self, image_path: str):
-        req = _Pending(image_path)
+        req = _Pending(next(self._ids), image_path)
         with self._lock:
             if self._closed:
                 raise RuntimeError("service is closed")
@@ -117,15 +129,19 @@ class CoalescingService:
             # brief coalescing window: let a burst accumulate, but never
             # hold a full batch (under sustained load the queue refills
             # while the previous batch is in flight)
-            deadline = time.monotonic() + self.max_wait_s
-            while len(self._queue) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0 or self._closed:
-                    break
-                self._lock.wait(remaining)
+            with tracing.span("serve.coalesce"):
+                deadline = time.monotonic() + self.max_wait_s
+                while len(self._queue) < self.max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or self._closed:
+                        break
+                    self._lock.wait(remaining)
             batch = self._queue[: self.max_batch]
             del self._queue[: len(batch)]
-            return batch
+        now = time.time_ns()
+        for req in batch:
+            tracing.record("serve.queue", req.enqueued_ns, now, request=req.id)
+        return batch
 
     def _collect(self):
         while True:
@@ -151,7 +167,8 @@ class CoalescingService:
                     _fail(batch, e)
                     continue
             if self.pipeline:
-                self._handoff.put((batch, prepared))
+                with tracing.span("serve.handoff"):
+                    self._handoff.put((batch, prepared))
             else:
                 self._execute(batch, prepared)
 
@@ -171,16 +188,16 @@ class CoalescingService:
 
     def _device_loop(self):
         while True:
-            item = self._handoff.get()
+            with tracing.span("serve.device_wait"):
+                item = self._handoff.get()
             if item is None:
                 return
             self._execute(*item)
 
     def _execute(self, batch, prepared):
         try:
-            out = self._svc.execute_batch(prepared)
-            for req, res in zip(batch, out):
-                req.result = res
+            with tracing.span("serve.batch", requests=[r.id for r in batch], rows=len(batch)):
+                out = self._svc.execute_batch(prepared)
         except BaseException as e:
             _fail(batch, e)
             return
@@ -188,5 +205,7 @@ class CoalescingService:
             with self._lock:
                 self.batches_run += 1
                 self.requests_served += len(batch)
-        for req in batch:
-            req.event.set()
+        with tracing.span("serve.reply"):
+            for req, res in zip(batch, out):
+                req.result = res
+                req.event.set()

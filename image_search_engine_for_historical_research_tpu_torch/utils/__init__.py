@@ -1,4 +1,4 @@
-"""Utilities: metrics logging."""
+"""Utilities: metrics logging, and the tracing spans (``utils.tracing``)."""
 
 from .profiling import MetricsLogger
 

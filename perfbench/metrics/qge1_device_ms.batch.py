@@ -1,0 +1,10 @@
+"""``qge1_device_ms.batch``: device milliseconds of a ``qge1`` call (the
+device span ``rerank.qge1``, CUDA events; no read-back), mean. Read from
+the port's span store (``perfbench/harness/spans.py``: the drivers'
+records do not carry it)."""
+
+from perfbench.harness.spans import device_ms_per_span
+
+
+def read(rec):
+    return device_ms_per_span(rec, "rerank.qge1")
