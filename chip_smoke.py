@@ -7,9 +7,9 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
 
 1. Environment: versions, the card's name and power limit, the kernels'
    build from the sources in this checkout (``nvcc`` for the beam-search
-   kernel and its phase-clock build, ``g++`` for the HNSW builder, all started
-   together; ``-Xptxas -v`` printed for both kernel builds), TF32 off for
-   matmuls and cuDNN.
+   kernel, its phase-clock build and the exact scan kernel, ``g++`` for the
+   HNSW builder, all started together; ``-Xptxas -v`` printed for the three
+   kernel builds), TF32 off for matmuls and cuDNN.
 2. The HNSW beam-search kernel against its plain PyTorch version on the card:
    ragged N=203 x 2048 with -1 padding and repeated ids (ids equal in order);
    the edge cases of ``ops.beam_search_cases`` on quarter-valued data, where
@@ -18,7 +18,13 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    -1 row, an N that fits only without the neighbour-row cache), ids and
    distances equal in order; then N=1,000,000 x 2048 (f32 and bf16) with a
    random m0=32 neighbour table, Q=70, ef=100, with the phase-clock split at
-   f32.
+   f32. Then the exact scan kernel (``ops.scan_topk``, the f32 inner-product
+   scan with its top-k) against its plain version over 1,007,323 x 2048 f32
+   unit rows at Q=1 and Q=16 with k=10 (served), Q=70 with k=100 (the batch
+   cell) and Q=72 with k=128 (its largest tile): scores within 1e-5, ids
+   equal where the scores are more than that apart, one launch a call; each
+   timed beside its bound, the plain version and ``torch.mm`` +
+   ``torch.topk``.
 3. A device-built 1M graph: 1,000,000 x 2048 clustered unit rows (8,192
    centres in a 64-d subspace, spread 0.1, bf16) made on the card from a
    seeded generator; ``build_hnsw_device(m=16, k_candidates=64)`` with each
@@ -68,11 +74,13 @@ Drives ``image_search_engine_for_historical_research_tpu_torch`` on the card:
    probe query through the kernel); ``cli.online.make_service``; 4 WSGI
    POSTs, the same 4 images and 4 more through ``query_image``, and one
    ``query_batch`` of 4. The kernel's launch count is set to 0 just before
-   each path and read just after; every HNSW search must have launched it.
+   each path and read just after; every HNSW search must have launched it,
+   and every qge1 the scan kernel (its count is reset and read beside).
    One query on a CPU-built service must give the card's ids. Then an
    ``--matching-method L2`` service on the card, whose rank 0 must equal the
-   HNSW service's for the 4 POSTs, and a CPU-built L2 service with the card's
-   L2 ids for one query. Then ``SearchService(rerank="diffusion")`` over the
+   HNSW service's for the 4 POSTs (two scan-kernel launches a POST: the flat
+   scan and qge1's), and a CPU-built L2 service with the card's L2 ids for
+   one query. Then ``SearchService(rerank="diffusion")`` over the
    HNSW gallery with a card-built artifact (n_trunc=2000, kd=50): 4 POSTs, 4
    ``query_image``, one ``query_batch`` of 4 (the batch's ids equal the
    singles', one kernel launch a search), a CPU-built diffusion service and
@@ -209,9 +217,11 @@ event, so the host's launch gaps are hidden (``device_ms``). The plain
 version's ``plain_ms`` is one call after a warm-up, a cut for the time
 limit.
 
-Prints a ``{"kernels": [...]}`` line (``launches``: every counted main-path
-run: the HNSW and diffusion services, the coalesced batches and the SAHA
-and LoFTR runs' HNSW matchers), a
+Prints a ``{"kernels": [...]}`` line (K1's ``launches``: every counted
+main-path run: the HNSW and diffusion services, the coalesced batches and
+the SAHA and LoFTR runs' HNSW matchers; the scan kernel's: the HNSW and L2
+services' counted runs, its times at the batch shape and every shape's
+record under ``shapes``), a
 ``{"rerank": {...}}`` line with the re-ranking phases' numbers, a
 ``{"pq": {...}}`` line with the PQ phases' numbers, a ``{"matchers":
 {...}}`` line with the remaining matchers' numbers, a ``{"slice7": {...}}``
@@ -451,6 +461,62 @@ def kernel_phase(bs, cases, dev, flush):
             out["clocks_1m"] = phase_split(bs, "1M f32 Q=70", dbt, nbr, q, starts, flush)
         del dbt
     del db, nbr
+    torch.cuda.empty_cache()
+    return out
+
+
+R1M = 1_007_323    # the R1M gallery's rows, which the scan kernel's main-path shapes scan
+# the scan kernel's main-path shapes: (label, Q, k)
+SCAN_SHAPES = (("post", 1, 10), ("served", 16, 10), ("batch", 70, 100), ("largest", 72, 128))
+
+
+def compare_topk(s_ref, i_ref, s_got, i_got, tol, label):
+    """Scores within ``tol``; ids equal wherever the reference's score lies
+    more than ``tol`` from its neighbours in the row. Returns the largest
+    score difference."""
+    s_ref, i_ref, s_got, i_got = (t.cpu().numpy() for t in (s_ref, i_ref, s_got, i_got))
+    check(s_got.shape == s_ref.shape and i_got.shape == i_ref.shape, f"{label}: shapes differ")
+    err = float(np.abs(s_got - s_ref).max())
+    check(err <= tol, f"{label}: score error {err} > {tol}")
+    gap = np.abs(np.diff(s_ref, axis=1)) > tol
+    untied = np.ones_like(s_ref, bool)
+    untied[:, 1:] &= gap
+    untied[:, :-1] &= gap
+    check(np.array_equal(i_got[untied], i_ref[untied]), f"{label}: untied ids differ")
+    return err
+
+
+def scan_topk_phase(sk, dev, flush, card, tol=1e-5):
+    """The exact scan kernel (``ops.scan_topk``) against its plain version
+    over 1,007,323 x 2048 f32 unit rows at the main path's shapes
+    (``SCAN_SHAPES``: a POST, a served batch of 16, the revisited protocol's
+    70 queries, the largest tile), one launch a call; each timed beside its
+    bound, the plain version and ``torch.mm`` + ``torch.topk``, the library
+    pair it replaced."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = unit_rows(torch.randn(R1M, D, generator=g, device=dev))
+    pick = torch.randint(0, R1M, (SCAN_SHAPES[-1][1],), generator=g, device=dev)
+    queries = unit_rows(x[pick] + torch.randn(len(pick), D, generator=g, device=dev) / D ** 0.5)
+    out = {}
+    for label, Q, k in SCAN_SHAPES:
+        q = queries[:Q].contiguous()
+        sk.launches = 0
+        s, i = sk.scan_topk(q, x, k)
+        torch.cuda.synchronize()
+        check(sk.launches == 1, f"scan_topk {label}: {sk.launches} launches, want 1")
+        err = compare_topk(*sk.scan_topk_reference(q, x, k), s, i, tol, f"scan_topk {label}")
+        run = lambda: sk.scan_topk(q, x, k)                                  # noqa: E731
+        device_ms = time_ms(run, 20, flush, spin=True)
+        bound, by = bound_of(x.numel() * 4 + q.numel() * 4 + Q * k * 12, 2 * Q * R1M * D)
+        rec = {"N": R1M, "D": D, "Q": Q, "k": k, "ms": time_ms(run, 20, flush),
+               "device_ms": device_ms,
+               "plain_ms": time_ms(lambda: sk.scan_topk_reference(q, x, k), 1, flush),
+               "library_ms": time_ms(lambda: torch.topk(torch.mm(q, x.T), k, dim=1), 20, flush),
+               "bound_ms": bound, "bound_by": by, "roofline_pct": 100 * bound / device_ms,
+               "max_abs_err": err}
+        out[label] = rec
+        print(f"scan_topk {label}: {json.dumps(rec)} ({card})", flush=True)
+    del x, queries
     torch.cuda.empty_cache()
     return out
 
@@ -3508,6 +3574,7 @@ def main():
     )
     from image_search_engine_for_historical_research_tpu_torch.ops import beam_search as bs
     from image_search_engine_for_historical_research_tpu_torch.ops import beam_search_cases
+    from image_search_engine_for_historical_research_tpu_torch.ops import scan_topk as sk
     from image_search_engine_for_historical_research_tpu_torch.serving import make_wsgi_app
 
     dev = torch.device("cuda")
@@ -3528,12 +3595,12 @@ def main():
 
     # 1. build every kernel and native library, all compilers started together
     t0 = time.perf_counter()
-    libs = ("beam_search", "beam_search_clocks", "hnsw")
+    libs = ("beam_search", "beam_search_clocks", "scan_topk", "hnsw")
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         for f in [pool.submit(native.load, name) for name in libs]:
             f.result()
     print(f"build_s {time.perf_counter() - t0:.2f}")
-    for name in libs[:2]:
+    for name in libs[:3]:
         log = native.build_log(name)
         print(f"nvcc -Xptxas -v, {name}:\n{log.strip()}")
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
@@ -3549,6 +3616,7 @@ def main():
 
     # 2. kernel against plain on the card
     kres = timed("kernel", kernel_phase, bs, beam_search_cases, dev, flush)
+    scan_rec = timed("scan_topk", scan_topk_phase, sk, dev, flush, card)
 
     # 3. a device-built HNSW graph at 1M, then diffusion on its rows
     graph_rec, big = timed("graph", graph_phase, bs, dev, flush, card)
@@ -3631,13 +3699,15 @@ def main():
         app = make_wsgi_app(svc)
         post(app, paths[15])                                 # warm-up, outside the count
 
-        bs.launches = 0
+        bs.launches = sk.launches = 0
         posted = [post(app, p) for p in paths[:4]]
         singles = [svc.query_image(p) for p in paths[4:8]]
         batch = svc.query_batch(paths[4:8])
         torch.cuda.synchronize()
-        launches = bs.launches
+        launches, scan_launches = bs.launches, sk.launches
         check(launches == 4 + 4 + 1, f"beam kernel launched {launches} times, want 9")
+        check(scan_launches == 4 + 4 + 1, f"the scan kernel launched {scan_launches} times, "
+                                          "want 9 (qge1's scan a search)")
 
         for i, out in enumerate(posted):
             ids = [r["id"] for r in out["results"]]
@@ -3669,10 +3739,15 @@ def main():
         svc_l2 = online.make_service(parse(argv_l2 + ["--device", "cuda"]))
         app_l2 = make_wsgi_app(svc_l2)
         post(app_l2, paths[15])
-        bs.launches = 0
+        bs.launches = sk.launches = 0
         posted_l2 = [post(app_l2, p) for p in paths[:4]]
         torch.cuda.synchronize()
         check(bs.launches == 0, "the L2 service launched the beam kernel")
+        check(sk.launches == 2 * 4, f"the L2 service launched the scan kernel {sk.launches} "
+                                    "times, want 8 (the flat scan and qge1's a POST)")
+        scan_launches += sk.launches
+        print(f"scan kernel launches: HNSW + qge1 service {scan_launches - sk.launches}, "
+              f"L2 + qge1 service {sk.launches} ({card})", flush=True)
         for i, (h, e) in enumerate(zip(posted, posted_l2)):
             h_ids, e_ids = [r["id"] for r in h["results"]], [r["id"] for r in e["results"]]
             t = e["timing"]
@@ -3779,6 +3854,16 @@ def main():
         "bound_by": main_rec["bound_by"],
         "library_ms": None,
         "us_per_hop": main_rec["us_per_hop"],
+    }, {
+        "name": "scan_topk",
+        "route": "cuda",
+        "source": "image_search_engine_for_historical_research_tpu_torch/csrc/scan_topk.cu",
+        "replaces": None,      # the JAX package leaves the scan to XLA's dot and lax.top_k
+        "launches": scan_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in scan_rec.values()),
+        **{key: scan_rec["batch"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")},
+        "shapes": scan_rec,
     }]}))
     print(json.dumps({"rerank": {"diffusion_6k": rr["diffusion"], "aqe": rr["aqe"],
                                  "dba": rr["dba"], "kr_6k": rr["kr"], "kr_100k": kr_large,

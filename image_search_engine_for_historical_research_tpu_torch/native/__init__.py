@@ -16,6 +16,8 @@ installed or downloaded.
 - ``beam_search_clocks``: the same source built with
   ``-DBEAM_SEARCH_PHASE_CLOCKS``, which adds per-phase ``clock64()`` sums
   (a measurement build; the served path never loads it).
+- ``scan_topk``: the exact inner-product scan with the top-k in its epilogue,
+  ``csrc/scan_topk.cu``, with ``nvcc`` for ``sm_90a``, plain C interface.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ _LIBRARIES = {
     "image_loader": ("g++", ["native/image_loader.cpp"], [], ["-ljpeg"]),
     "beam_search": ("nvcc", ["csrc/beam_search.cu"], [], []),
     "beam_search_clocks": ("nvcc", ["csrc/beam_search.cu"], ["-DBEAM_SEARCH_PHASE_CLOCKS"], []),
+    "scan_topk": ("nvcc", ["csrc/scan_topk.cu"], [], []),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,12 +2,17 @@
 
 Port of ``image_search_engine_for_historical_research_tpu/ops/topk.py``
 (:30-284): ``exact_topk`` with its one-shot, chunked and ``QBLOCK`` paths,
-``exact_scores``, ``exact_ranks`` and ``streaming_exact_topk``. The score
-GEMM is left to cuBLAS and the top-k to ``torch.topk``, as the JAX package
-left both to XLA (neither is a Pallas kernel there).
+``exact_scores``, ``exact_ranks`` and ``streaming_exact_topk``. The JAX
+package left the score GEMM and the top-k to XLA (neither is a Pallas kernel
+there). The port leaves them to cuBLAS and ``torch.topk``, except on the one
+shape family where cuBLAS wastes the card: the skinny f32 inner-product scan,
+which the ``ops.scan_topk`` kernel does with the top-k in its epilogue.
 
-- When the ``(Q, N)`` f32 score matrix fits ``ONESHOT_SCORE_BYTES``: one GEMM
-  and one top-k. Otherwise the gallery is scanned in chunks (per-chunk top-k,
+- When the ``(Q, N)`` f32 score matrix fits ``ONESHOT_SCORE_BYTES``: one
+  scan. With ``metric="ip"``, f32 ``q`` and gallery on the card, and what
+  the kernel takes (``scan_topk.takes``: contiguous, 16-byte aligned, Q at
+  most 72, k at most 128, D a multiple of 4) it is the kernel; otherwise one
+  GEMM and one top-k. Otherwise the gallery is scanned in chunks (per-chunk top-k,
   then one merge), and more than ``QBLOCK`` queries go in query blocks. Both
   budgets are memory bounds, kept as the JAX package set them. A chunk is a
   view of the gallery: the last one is shorter instead of padded, so the scan
@@ -19,7 +24,8 @@ left both to XLA (neither is a Pallas kernel there).
   summation order differs).
 - Ties: ``lax.top_k`` puts the lower index first among equal scores. The
   port orders the selected ids the same way, but which of several ids tied
-  at the k-th score is selected may differ; callers hold ids by score there.
+  at the k-th score is selected may differ, except on the kernel, which
+  selects the lowest as ``lax.top_k`` does; callers hold ids by score there.
 
 Metrics: ``"ip"`` and ``"l2"`` via ``2 q.x - ||x||^2`` (the ``||q||^2``
 constant cannot change the order). Scores are larger-is-better throughout.
@@ -32,6 +38,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import scan_topk
 
 NEG_INF = float("-inf")
 
@@ -147,6 +155,8 @@ def _exact_topk_impl(queries, db, k, metric, chunk, matmul_dtype):
 
     if Q * N * 4 <= ONESHOT_SCORE_BYTES:
         x = db.to(matmul_dtype) if matmul_dtype is not None else db
+        if metric == "ip" and scan_topk.takes(q, x, k):
+            return scan_topk.scan_topk(q, x, k)
         return _top(_scores(q, x, metric), k)
 
     # chunked path: per-chunk top-k then merge; a (Q, chunk) f32 score tile

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.normalization import l2n
-from ..ops.topk import _matmul_f32, _top, exact_scores
+from ..ops.topk import _matmul_f32, _top, exact_scores, exact_topk
 from ..utils import tracing
 
 
@@ -60,8 +60,9 @@ def qge1(ranks, qvecs, vecs, k: int = 3, w: float = 4.0, out_k: Optional[int] = 
 
 
 def _qge1_topk(ranks, qvecs, vecs, k: int, w: float, out_k: int) -> torch.Tensor:
-    scores = exact_scores(_enhance(ranks, vecs, k, w), vecs)
-    return _top(scores, out_k)[1]
+    """The expanded queries' top-``out_k`` by ``exact_topk``, which scans an
+    f32 gallery on the card with the ``scan_topk`` kernel."""
+    return exact_topk(_enhance(ranks, vecs, k, w), vecs, out_k, metric="ip")[1]
 
 
 def _centered_normalized(a: torch.Tensor, b: torch.Tensor):

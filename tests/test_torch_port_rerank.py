@@ -12,7 +12,13 @@ import torch
 from image_search_engine_for_historical_research_tpu.ops.topk import exact_ranks as j_exact_ranks
 from image_search_engine_for_historical_research_tpu.rerank import kr as jkr
 from image_search_engine_for_historical_research_tpu.rerank import qe as jqe
-from image_search_engine_for_historical_research_tpu_torch.ops.topk import exact_ranks
+from image_search_engine_for_historical_research_tpu_torch.ops import scan_topk as sk
+from image_search_engine_for_historical_research_tpu_torch.ops.topk import (
+    _top,
+    exact_ranks,
+    exact_scores,
+    exact_topk,
+)
 from image_search_engine_for_historical_research_tpu_torch.rerank import kr as tkr
 from image_search_engine_for_historical_research_tpu_torch.rerank import qe as tqe
 from torch_port_helpers import one_torch_thread  # noqa: F401  (a fixture)
@@ -61,6 +67,38 @@ def test_qge1_out_k_puts_lower_id_first_on_ties():
     got = tqe.qge1(ranks, None, t(g), k=3, out_k=12)
     want = jqe.qge1(jnp.asarray(ranks.numpy()), None, jnp.asarray(g), k=3, out_k=12)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("routed", [False, True], ids=["gemm_and_topk", "scan_kernel_route"])
+@pytest.mark.parametrize("out_k", [5, 60])
+def test_qge1_topk_through_exact_topk_gives_the_old_ids(monkeypatch, routed, out_k):
+    """Serving qge1 now takes its top-``out_k`` from ``exact_topk`` (the
+    scan kernel's route on the card): on tie-free inputs it gives the ids
+    that the full score matrix and ``_top`` gave. ``routed`` leaves the
+    kernel's device check out, so the route runs with the plain version."""
+    rng = np.random.default_rng(5)                        # unclustered: tie-free scores
+    g, q = (a / np.linalg.norm(a, axis=1, keepdims=True)
+            for a in (rng.standard_normal((400, 48), np.float32),
+                      rng.standard_normal((7, 48), np.float32)))
+    if routed:
+        monkeypatch.setattr(sk, "refusal", sk._operand_refusal)
+    before = sk.launches
+    calls = []
+    plain = sk.scan_topk
+
+    def spy(*a):
+        calls.append(a[2])
+        return plain(*a)
+
+    monkeypatch.setattr(sk, "scan_topk", spy)
+    ranks = exact_topk(t(q), t(g), 10)[1]
+    got = tqe.qge1(ranks, t(q), t(g), k=3, out_k=out_k)
+    scores = exact_scores(tqe._enhance(ranks, t(g), 3, 4.0), t(g))
+    top = torch.sort(scores, dim=1, descending=True).values[:, :out_k + 1]
+    assert float(top.diff(dim=1).abs().min()) > 1e-6     # tie-free
+    np.testing.assert_array_equal(got.numpy(), _top(scores, out_k)[1].numpy())
+    assert calls == ([10, out_k] if routed else [])
+    assert sk.launches == before
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -17,6 +17,7 @@ from image_search_engine_for_historical_research_tpu_torch.index import (
     load_index,
     save_index,
 )
+from image_search_engine_for_historical_research_tpu_torch.ops import scan_topk as sk
 from image_search_engine_for_historical_research_tpu_torch.ops import topk as ttopk
 from torch_port_helpers import one_torch_thread  # noqa: F401  (a fixture)
 
@@ -187,3 +188,85 @@ def test_exact_topk_on_card_matches_cpu(bf16):
                               matmul_dtype=mt)
     # f32 sums in another order on each device (bf16 products are exact in f32)
     assert_topk_close(sc, ic, sg.cpu(), ig.cpu(), F32_TOL)
+
+
+def test_plain_scan_topk_selects_the_lowest_ids_at_the_kth_score():
+    """Rows r and r + 4 and r + 8 are equal, so the 5th score is tied three
+    ways: the plain version (and the kernel) take the lowest ids, first, as
+    ``_top_exact`` and ``lax.top_k`` do."""
+    db = np.tile(np.eye(4, dtype=np.float32), (3, 1))
+    q = np.array([[1.0, 0.5, 0.25, 0.0], [0.0, 0.25, 0.5, 1.0]], np.float32)
+    s, i = sk.scan_topk(torch.from_numpy(q), torch.from_numpy(db), 5)
+    s_ex, i_ex = ttopk._top_exact(torch.from_numpy(q) @ torch.from_numpy(db).T, 5)
+    np.testing.assert_array_equal(i.numpy(), i_ex.numpy())
+    np.testing.assert_array_equal(s.numpy(), s_ex.numpy())
+    np.testing.assert_array_equal(i.numpy(), [[0, 4, 8, 1, 5], [3, 7, 11, 2, 6]])
+    _, ij = jtopk.exact_topk(jnp.asarray(q), jnp.asarray(db), 5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+
+
+ROUTES = {
+    # case: (routed to the kernel, what differs from the routed default)
+    "taken": (True, {}),
+    "largest_q_and_k": (True, {"Q": sk.MAX_Q, "k": sk.MAX_K}),
+    "not_on_the_card": (False, {"device_check": True}),
+    "l2": (False, {"metric": "l2"}),
+    "bf16_matmul": (False, {"matmul_dtype": torch.bfloat16}),
+    "bf16_storage": (False, {"db_dtype": torch.bfloat16}),
+    "f64_queries": (False, {"q_dtype": torch.float64}),
+    "q_non_contiguous": (False, {"q_layout": "transposed"}),
+    "db_non_contiguous": (False, {"db_layout": "transposed"}),
+    "db_misaligned": (False, {"db_layout": "offset"}),
+    "q_above_the_tile": (False, {"Q": sk.MAX_Q + 1}),
+    "k_above_the_list": (False, {"k": sk.MAX_K + 1}),
+    "d_not_a_multiple_of_4": (False, {"D": 30}),
+    "chunked_path": (False, {"budget": 8 * 300 * 4 // 2}),
+}
+
+
+def _layout(a, how):
+    if how == "transposed":
+        return a.T.contiguous().T
+    if how == "offset":
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype)
+        out = flat[1:].view(a.shape)
+        out.copy_(a)
+        return out
+    return a
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_exact_topk_routes_to_the_kernel_exactly_when_it_takes_the_scan(monkeypatch, budget,
+                                                                        case):
+    """One case per condition of the route: the kernel's device, f32 ``q``
+    and gallery, contiguous and 16-byte aligned, ``ip``, Q and k within the
+    kernel's limits, D a multiple of 4, the one-shot path. Past the
+    ``not_on_the_card`` case the refusal's device check is left out (the
+    tensors are on the CPU), so the plain version stands in for the kernel."""
+    routed, kw = ROUTES[case]
+    if not kw.get("device_check"):
+        monkeypatch.setattr(sk, "refusal", sk._operand_refusal)
+    calls = []
+
+    def spy(q, x, k):
+        calls.append((tuple(q.shape), tuple(x.shape), k))
+        return sk.scan_topk_reference(q, x, k)
+
+    monkeypatch.setattr(sk, "scan_topk", spy)
+    if "budget" in kw:
+        budget(kw["budget"])
+    Q, k, D = kw.get("Q", 8), kw.get("k", 10), kw.get("D", 32)
+    qn, dbn = data(Q, 300, D=D, seed=11)
+    q = _layout(torch.from_numpy(qn).to(kw.get("q_dtype", torch.float32)), kw.get("q_layout"))
+    db = _layout(torch.from_numpy(dbn).to(kw.get("db_dtype", torch.float32)),
+                 kw.get("db_layout"))
+    s, i = ttopk.exact_topk(q, db, k, metric=kw.get("metric", "ip"),
+                            matmul_dtype=kw.get("matmul_dtype"))
+    assert bool(calls) == routed
+    # the metric, the product's dtype and the path are the route's own conditions
+    assert sk.takes(q, db, k) == (routed or case in ("l2", "bf16_matmul", "chunked_path"))
+    if routed:
+        assert calls == [((Q, D), (300, D), k)]
+        s_ex, i_ex = ttopk._top_exact(q @ db.T, k)
+        np.testing.assert_array_equal(i.numpy(), i_ex.numpy())
+        np.testing.assert_array_equal(s.numpy(), s_ex.numpy())
