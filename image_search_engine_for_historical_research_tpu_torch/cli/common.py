@@ -23,7 +23,10 @@ def load_network(
 ):
     """Build the retrieval model on ``device``; when ``network_path`` exists,
     rebuild it from the checkpoint's meta and load its ``state_dict``
-    strictly. Without a checkpoint the weights are random (seed 0)."""
+    strictly. Without a checkpoint the weights are random (seed 0).
+    ``architecture`` is one of ``models.retrieval.architectures()``; for
+    ``dinov2_vitl14_reg`` the checkpoint is the released bare state dict
+    (``dinov2_vitl14_reg4_pretrain.pth``)."""
     meta_params = {"architecture": architecture}
     meta_params.update(params or {})
     if network_path and os.path.exists(network_path):
@@ -47,8 +50,11 @@ def load_network(
 
 def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--network-path", default=None,
-                        help="torch checkpoint (.pth) in the SOLAR layout")
-    parser.add_argument("--arch", default="resnet101")
+                        help="torch checkpoint (.pth) in the SOLAR layout, or DINOv2's "
+                             "released layout with --arch dinov2_vitl14_reg")
+    parser.add_argument("--arch", default="resnet101",
+                        help="resnet50 | resnet101 | resnet152 (SOLAR) | "
+                             "dinov2_vitl14_reg (DINOv2 ViT-L/14 with registers)")
     parser.add_argument("--image-size", type=int, default=1024)
     parser.add_argument("--multiscale", default="[1, 2**(1/2), 1/2**(1/2)]",
                         help="python list of scales (reference flag format)")

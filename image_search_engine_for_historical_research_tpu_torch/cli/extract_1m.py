@@ -99,6 +99,9 @@ def sweep(args, mesh=None):
 
     model = load_network(args.network_path, args.arch, device=args.device)
     if args.bf16:
+        if not hasattr(model.module, "features"):
+            raise SystemExit(f"--bf16 runs a ResNet backbone in bfloat16; "
+                             f"{model.meta['architecture']} runs in float32 only")
         model.module.features.compute_dtype = torch.bfloat16
     fn = (make_extract_fn(model.module, scales=scales) if mesh is None
           else make_sharded_extract_fn(model.module, mesh, scales=scales))

@@ -1,4 +1,4 @@
-"""The SOLAR global-retrieval descriptor model.
+"""The global-retrieval descriptor models: SOLAR, and the DINOv2 ViT.
 
 Port of ``image_search_engine_for_historical_research_tpu/models/retrieval.py``
 (:36-202): ResNet+SOA features -> (optional local whitening) -> pooling (GeM
@@ -20,6 +20,10 @@ The backbone's training knobs (``frozen_stages``, ``remat``,
 this one's parameters with other knobs, as Flax's ``module.clone`` does (the
 trainer trains through a frozen, bf16 or remat clone and validates and mines
 through the module itself).
+
+``init_network`` also builds the DINOv2 ViT-L/14 with registers
+(``architecture="dinov2_vitl14_reg"``, ``models.vit``): its CLS token,
+L2-normalized, is the descriptor, with no pooling or whitening.
 """
 
 from __future__ import annotations
@@ -35,14 +39,17 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import normalization, pooling
 from .resnet import STAGE_BLOCKS, FrozenBatchNorm2d, ResNetSOA
+from .vit import ARCHITECTURES as VIT_ARCHITECTURES
+from .vit import DinoV2Retrieval
 
 OUTPUT_DIM = {
     "resnet50": 2048,
     "resnet101": 2048,
     "resnet152": 2048,
+    "dinov2_vitl14_reg": 1024,
 }
 
-FEATURE_DIM = 2048  # channels of conv5_x for every supported architecture
+FEATURE_DIM = 2048  # channels of conv5_x of every ResNet (SolarRetrieval's width)
 
 
 class Linear(nn.Linear):
@@ -159,7 +166,7 @@ class SolarRetrieval(nn.Module):
 class RetrievalModel:
     """The module and the reference's ``net.meta`` contract."""
 
-    module: SolarRetrieval
+    module: nn.Module            # SolarRetrieval or DinoV2Retrieval
     meta: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -193,17 +200,51 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.fill_(1.0)
 
 
+def architectures() -> list:
+    """Every architecture ``init_network`` builds."""
+    return sorted(STAGE_BLOCKS) + sorted(VIT_ARCHITECTURES)
+
+
+def _init_vit(architecture: str, params: Dict[str, Any], seed: int, dev) -> RetrievalModel:
+    """The DINOv2 ViT: ``params`` keys mean and std (ImageNet's by default);
+    the ResNet keys (pooling, whitening, soa, ...) do not apply and are
+    refused."""
+    unknown = set(params) - {"architecture", "mean", "std"}
+    if unknown:
+        raise ValueError(f"{architecture} takes no {sorted(unknown)}")
+    widths = VIT_ARCHITECTURES[architecture]
+    module = DinoV2Retrieval(**widths)
+    module.init_weights(torch.Generator().manual_seed(seed))
+    module = module.to(dev).eval().requires_grad_(False)
+    meta = {
+        "architecture": architecture,
+        "pooling": "cls",
+        "regional": False,
+        "whitening": False,
+        "mean": params.get("mean", [0.485, 0.456, 0.406]),
+        "std": params.get("std", [0.229, 0.224, 0.225]),
+        "outputdim": widths["embed_dim"],
+        "soa": False,
+    }
+    return RetrievalModel(module=module, meta=meta)
+
+
 def init_network(params: Optional[Dict[str, Any]] = None, seed: int = 0,
                  device="cuda") -> RetrievalModel:
     """Factory mirroring the JAX ``init_network``: ``params`` keys (all
     optional) architecture, pooling, p, whitening, local_whitening, regional,
     soa, soa_layers, mean, std, compute_dtype. Weights are random from
-    ``seed``; checkpoints load through ``cli.common.load_network``."""
+    ``seed``; checkpoints load through ``cli.common.load_network``. The
+    architectures are ``architectures()``: the ResNets, and
+    ``dinov2_vitl14_reg``, which takes only mean and std."""
     dev = resolve_device(device)
     params = dict(params or {})
     architecture = params.get("architecture", "resnet101")
+    if architecture in VIT_ARCHITECTURES:
+        return _init_vit(architecture, params, seed, dev)
     if architecture not in STAGE_BLOCKS:
-        raise ValueError(f"unsupported architecture: {architecture}")
+        raise ValueError(f"unsupported architecture: {architecture}; "
+                         f"have {', '.join(architectures())}")
     soa = params.get("soa", True)
     soa_layers = params.get("soa_layers", "45") if soa else ""
     pooling_name = params.get("pooling", "gem")

@@ -130,8 +130,11 @@ class SearchService:
             raise ValueError(f"model is on {model.device}, service on {self.device}")
         self._load_pool = ThreadPoolExecutor(max_workers=8)
         self._extract_fn = make_extract_fn(model.module, scales=self.scales)
-        self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
-        self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        meta = getattr(model, "meta", None) or {}
+        self._mean = torch.as_tensor(meta.get("mean", IMAGENET_MEAN), dtype=torch.float32,
+                                     device=self.device)
+        self._std = torch.as_tensor(meta.get("std", IMAGENET_STD), dtype=torch.float32,
+                                    device=self.device)
         # one device copy of the gallery: share the index's when it holds the
         # same (L2-normalized) descriptors
         index_vecs = getattr(index, "vectors", None)

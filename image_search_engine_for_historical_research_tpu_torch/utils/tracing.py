@@ -16,6 +16,8 @@ report it. While tracing is on, a span also
 
 ``record(name, start_ns, end_ns, **attrs)`` stores a span that starts on
 one thread and ends on another (a request's wait in a queue).
+``count(name, value)`` adds to a counter while tracing is on; a value may
+be a device tensor, read only by ``counters()``.
 
 Tracing is on while ``enable()`` is in force or a ``torch.profiler``
 profile runs in the process: ``torch.autograd.profiler._is_profiler_enabled``
@@ -25,7 +27,7 @@ only if tracing was on at both of its ends. Off, a span makes one flag
 check and two ``perf_counter`` reads, and nothing else.
 
 The store is in memory, capped at ``MAX_SPANS`` (``summary()`` says how
-many spans it dropped); ``reset()`` empties it.
+many spans it dropped); ``reset()`` empties it and the counters.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ MAX_SPANS = 200_000
 _enabled = False
 _lock = threading.Lock()
 _store: List["Record"] = []
+_counts: Dict[str, list] = defaultdict(list)
 _dropped = 0
 _ids = itertools.count(1)
 _local = threading.local()
@@ -165,6 +168,22 @@ def record(name: str, start_ns: int, end_ns: int, **attrs) -> None:
                      (end_ns - start_ns) / 1e9, attrs))
 
 
+def count(name: str, value) -> None:
+    """Add ``value`` (a number or a one-element tensor) to the counter
+    ``name``, when tracing is on. A tensor is kept as it is (no
+    synchronisation) and read by ``counters()``."""
+    if is_on():
+        with _lock:
+            _counts[name].append(value)
+
+
+def counters() -> Dict[str, int]:
+    """``{name: total}`` of the counters (waits for any device values)."""
+    with _lock:
+        items = [(k, list(v)) for k, v in _counts.items()]
+    return {k: int(sum(int(x) for x in v)) for k, v in items}
+
+
 def spans() -> List[Record]:
     """The stored spans, in the order they ended."""
     with _lock:
@@ -195,8 +214,9 @@ def summary() -> Dict[str, Any]:
 
 
 def reset() -> None:
-    """Empty the store."""
+    """Empty the store and the counters."""
     global _dropped
     with _lock:
         _store.clear()
+        _counts.clear()
         _dropped = 0

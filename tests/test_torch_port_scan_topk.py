@@ -138,6 +138,34 @@ def test_a_batch_step_launches_twice():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 4])
+def test_the_vit_gallery_width_matches_plain(Q):
+    """The served ViT's scans: Q <= 4 coalesced uploads, k = 10, over
+    1,007,323 x 1024 f32 unit rows (4.13 GB), through ``FlatIndex.search``
+    and qge1, one launch each."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(R1M, 1024, generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    q = torch.randn(Q, 1024, generator=g, device="cuda")
+    q /= q.norm(dim=1, keepdim=True)
+    assert sk.takes(q, x, 10)
+    s, i = sk.scan_topk(q, x, 10)
+    assert_topk_close(*sk.scan_topk_reference(q, x, 10), s, i)
+    ix = build_flat(x, metric="cosine", storage_dtype="float32", device="cuda")
+    del x
+    before = sk.launches
+    _, ids = ix.search(q, 10)
+    ranks = qge1(ids, None, ix.vectors, k=3, w=4.0, out_k=10)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 2
+    assert_topk_close(*sk.scan_topk_reference(q, ix.vectors, 10), *ix.search(q, 10))
+    assert ranks.shape == (Q, 10)
+    del ix
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16", "q_above", "k_above", "non_contiguous"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     _card()
