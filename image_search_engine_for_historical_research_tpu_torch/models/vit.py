@@ -23,22 +23,28 @@ at the top left of one square canvas):
   (``mask[:, ::patch, ::patch]``, as the ResNet path strides its mask);
   the CLS and register tokens are always keys, and the registers take no
   position;
-- padded patches are computed as queries but never attended to, so each
-  row equals a forward over its valid tokens alone.
+- before the blocks each row's keys are packed (``pack_keys``): gathered
+  in their order, with the positions they took on the canvas, into a
+  sequence as long as the batch's longest row of keys, so padded patches
+  are neither computed nor attended to and each row equals a forward over
+  its valid tokens alone. Rows with fewer keys than the longest are
+  masked past their own; where every row has as many (an upload of either
+  orientation at the same scale, or no padding at all) no mask is left.
 
-Attention runs through ``torch``'s fused attention with the key mask; on
-CUDA it is held to the memory-efficient kernel, which takes f32 and a
-mask and never holds a ``(B, heads, N, N)`` score tensor (with TF32 off it
-computes f32 products: 2.7e-7 from an f64 softmax at 10,614 tokens on an
-H100, against 9e-5 for a TF32 product).
+Attention runs through ``torch``'s fused attention with the key mask, if
+any; on CUDA it is held to the memory-efficient kernel, which takes f32
+and a mask and never holds a ``(B, heads, N, N)`` score tensor (with TF32
+off it computes f32 products: 2.7e-7 from an f64 softmax at 10,614 tokens
+on an H100, against 9e-5 for a TF32 product).
 
 Spans (``utils.tracing``, on the input's device): ``vit.forward`` (one
-scale's forward), ``vit.embed`` (patches, positions, tokens),
+scale's forward), ``vit.embed`` (patches, positions, tokens, packing),
 ``vit.attention`` (each block's attention branch) holding
 ``vit.attention_core`` (the masked softmax(q kᵀ) v alone), and ``vit.mlp``.
-While tracing is on, the counters ``vit.token_rows`` (token rows computed,
-every row of every slot) and ``vit.key_rows`` (those that were keys) add
-up each forward.
+While tracing is on, the counters ``vit.token_rows`` (token rows the
+blocks compute, every row of every slot after packing: ``B n``) and
+``vit.key_rows`` (those that were keys) add up each forward; their
+difference is the padding that packing leaves.
 """
 
 from __future__ import annotations
@@ -73,6 +79,24 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def pack_keys(tokens: torch.Tensor, keep: torch.Tensor):
+    """``(B, N, D)`` tokens and their ``(B, N)`` keys -> ``(B, n, D)``: each
+    row's keys in their order, ``n`` the most keys of any row, and the
+    ``(B, n)`` keys of the packed rows (``None`` where every row has ``n``;
+    a shorter row is filled out with its first non-keys, masked).
+
+    ``n`` sizes the blocks, so the key counts are read back to the host
+    once a forward: one wait for the embedding, a few milliseconds at
+    most against the blocks' hundreds."""
+    counts = keep.sum(1)
+    fewest, n = torch.stack(torch.aminmax(counts)).tolist()
+    order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices[:, :n]
+    tokens = tokens.gather(1, order[..., None].expand(-1, -1, tokens.shape[-1]))
+    if fewest == n:
+        return tokens, None
+    return tokens, torch.arange(n, device=keep.device) < counts[:, None]
 
 
 class PatchEmbed(nn.Module):
@@ -178,6 +202,8 @@ class DinoV2Retrieval(nn.Module):
         with tracing.span("vit.forward", device=x.device):
             with tracing.span("vit.embed", device=x.device):
                 tokens, keep = self.embed(x, mask)
+                if keep is not None:
+                    tokens, keep = pack_keys(tokens, keep)
             if tracing.is_on():
                 B, N = tokens.shape[:2]
                 tracing.count("vit.token_rows", B * N)
